@@ -1,0 +1,284 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (zk_toolkit_tpu_torch) on one NVIDIA
+GPU: builds the kernels from csrc/, holds each against its plain PyTorch
+version on the card, drives the 2^20-point BLS12-381 G1 MSM through the
+port's bench entry point with the known-dlog check, and prints:
+
+  phase lines, each with its seconds;
+  a `kernels` JSON line: per kernel its route, source, the TPU kernel it
+    replaces, launches during the MSM run, the largest limb difference from
+    its plain version (tolerance 0: integer arithmetic), its time, its plain
+    version's time and its bound at a shape the main path gives it;
+  the card's name and power limit as nvidia-smi prints them;
+  last, {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+
+Any failed phase exits non-zero before the last line. Without a CUDA device
+it exits 2 and prints no result.
+
+    python3 chip_smoke.py
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import signal
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# H100 SXM peaks (NVIDIA data sheet): HBM3 3.35 TB/s; FP32 67 TFLOP/s
+# = 132 SMs x 128 lanes x 2 (FMA) x 1.98 GHz. A 32-bit integer multiply-add
+# issues on half of those lanes: 67e12 / 2 / 2 = 16.7e12 IMAD/s.
+HBM_BYTES_PER_S = 3.35e12
+IMAD_PER_S = 67e12 / 4
+
+# Odd sizes around the launch grid, plus every batch the kernels are timed
+# at (32, 8192, 2^16).
+BATCHES = (1, 32, 255, 257, 513, 1025, 8192, 1 << 16)
+PHASE_LIMIT_S = {"build": 400, "parity": 300, "slice": 420}
+
+
+class PhaseTimeout(Exception):
+    pass
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Prints the phase's seconds; fails it after PHASE_LIMIT_S[name]."""
+    def _alarm(signum, frame):
+        raise PhaseTimeout(f"phase {name} exceeded {PHASE_LIMIT_S[name]} s")
+
+    old = signal.signal(signal.SIGALRM, _alarm)
+    signal.alarm(PHASE_LIMIT_S[name])
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
+    print(f"phase {name}: ok in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int, warm: int = 2) -> float:
+    """Mean device milliseconds of fn() over `reps` back-to-back calls."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def diff_stats(got, want):
+    """(rows that differ, largest limb difference) between tuples of tensors."""
+    rows = torch.zeros(got[0].reshape(-1, got[0].shape[-1]).shape[0], dtype=torch.bool,
+                       device=got[0].device)
+    err = 0
+    for g, w in zip(got, want):
+        d = (g.long() - w.long()).abs().reshape(rows.shape[0], -1)
+        rows |= d.any(-1)
+        err = max(err, int(d.max()) if d.numel() else 0)
+    return int(rows.sum()), err
+
+
+# -- phases ------------------------------------------------------------------------
+
+# name, source, the TPU kernel it replaces, and the batch it is timed at: one
+# the main path gives it (B1: to_affine of the 8192-entry fixed-base table;
+# B2: an up-sweep level of the 2^20 MSM; B3: the Horner and 255*T steps, one
+# point per window).
+KERNELS = (
+    ("mont_mul", "zk_toolkit_tpu_torch/csrc/mont_mul.cu",
+     "zk_toolkit_tpu/ops/limbs.py:315 _mont_mul_kernel", 8192),
+    ("point_add", "zk_toolkit_tpu_torch/csrc/point_add.cu",
+     "zk_toolkit_tpu/ops/curve_kernels.py:152 _point_add_call", 1 << 16),
+    ("point_double", "zk_toolkit_tpu_torch/csrc/point_double.cu",
+     "zk_toolkit_tpu/ops/curve_kernels.py:227 _point_double_call", 32),
+)
+TIMING_BATCH = {name: batch for name, _, _, batch in KERNELS}
+
+
+SECP256K1_P = 0xFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFEFFFFFC2F
+
+
+def bound_ms(n_bytes: float, n_imad: float):
+    """(least ms, what bounds it): the larger of bytes over the HBM rate and
+    32-bit multiply-adds over the INT32 rate."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_imad / IMAD_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def parity_and_timing(dev) -> dict:
+    """Each kernel against its plain version on the card at every batch of
+    BATCHES (tolerance 0), then both timed at the kernel's main-path batch.
+    Returns per kernel: mismatching rows, max limb error, ms, plain_ms,
+    bound_ms, bound_by, batch."""
+    from zk_toolkit_tpu_torch.curves.bls12_381 import params
+    from zk_toolkit_tpu_torch.ops import curve_kernels as CK
+    from zk_toolkit_tpu_torch.ops import curve_ops as C
+    from zk_toolkit_tpu_torch.ops import limbs as L
+    from zk_toolkit_tpu_torch.ops.field_ops import FqOps
+    from zk_toolkit_tpu_torch.utils import samples as S
+
+    rng = np.random.default_rng(2024)
+    fq = L.field_spec(params.Q)
+    plain = FqOps(fq, plain=True)
+    res = {name: {"mismatches": 0, "max_abs_err": 0} for name, *_ in KERNELS}
+
+    def record(name, got, want):
+        rows, err = diff_stats(got, want)
+        res[name]["mismatches"] += rows
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+
+    for n in BATCHES:
+        for p in (params.Q, params.R, SECP256K1_P):
+            spec = L.field_spec(p)
+            a, b = S.corner_pairs(rng, n, spec, dev)
+            record("mont_mul", (L._mont_mul_fused(a, b, spec),), (L.mont_mul_plain(a, b, spec),))
+        pp, qq = S.point_pairs(rng, n, dev)
+        record("point_add", CK.point_add_fused(pp, qq, fq), C._point_add_formula(plain, pp, qq))
+        record("point_double", CK.point_double_fused(pp, fq), C._point_double_formula(plain, pp))
+        torch.cuda.synchronize()
+    print(f"parity batches {list(BATCHES)}: " + ", ".join(
+        f"{k} {v['mismatches']} mismatching rows" for k, v in res.items()), flush=True)
+
+    k = fq.K
+    word = 4 * k                                   # bytes of one coordinate
+    prod = k * k                                   # IMAD slots per Montgomery product
+    n = TIMING_BATCH["mont_mul"]
+    a, b = S.random_field(rng, n, fq, dev), S.random_field(rng, n, fq, dev)
+    record("mont_mul", (L._mont_mul_fused(a, b, fq),), (L.mont_mul_plain(a, b, fq),))
+    res["mont_mul"].update(
+        batch=n, ms=cuda_ms(lambda: L._mont_mul_fused(a, b, fq), 200),
+        plain_ms=cuda_ms(lambda: L.mont_mul_plain(a, b, fq), 5))
+    res["mont_mul"]["bound_ms"], res["mont_mul"]["bound_by"] = bound_ms(n * 3 * word, n * prod)
+    n = TIMING_BATCH["point_add"]                  # generic pairs, as in the stream
+    pp, qq = S.point_pairs(rng, n, dev, generic_only=True)
+    record("point_add", CK.point_add_fused(pp, qq, fq), C._point_add_formula(plain, pp, qq))
+    finite = int(((pp[2] != 0).any(-1) & (qq[2] != 0).any(-1)).sum())
+    res["point_add"].update(
+        batch=n, ms=cuda_ms(lambda: CK.point_add_fused(pp, qq, fq), 50),
+        plain_ms=cuda_ms(lambda: C._point_add_formula(plain, pp, qq), 2, warm=1))
+    res["point_add"]["bound_ms"], res["point_add"]["bound_by"] = bound_ms(
+        n * 9 * word, finite * 16 * prod)
+    n = TIMING_BATCH["point_double"]
+    pp = tuple(c[:n].contiguous() for c in pp)
+    record("point_double", CK.point_double_fused(pp, fq), C._point_double_formula(plain, pp))
+    res["point_double"].update(
+        batch=n, ms=cuda_ms(lambda: CK.point_double_fused(pp, fq), 500),
+        plain_ms=cuda_ms(lambda: C._point_double_formula(plain, pp), 5))
+    res["point_double"]["bound_ms"], res["point_double"]["bound_by"] = bound_ms(
+        n * 6 * word, n * 7 * prod)
+    return res
+
+
+def small_msm_check(dev):
+    """A 64-point MSM on the card (kernels) against the host oracle."""
+    from zk_toolkit_tpu_torch.bench import msm_inputs
+    from zk_toolkit_tpu_torch.curves.bls12_381 import params
+    from zk_toolkit_tpu_torch.ops import curve_ops as C
+    from zk_toolkit_tpu_torch.ops import limbs as L
+    from zk_toolkit_tpu_torch.ops import msm as M
+    from zk_toolkit_tpu_torch.ops.field_ops import FqOps
+    from zk_toolkit_tpu_torch.utils import host_curve as HC
+
+    spec = L.field_spec(params.Q)
+    base_np, sc_np, _, sc = msm_inputs(64, dev)
+    ks = [int.from_bytes(r.astype("<u2").tobytes(), "little") for r in base_np]
+    ss = [int.from_bytes(r.astype("<u2").tobytes(), "little") for r in sc_np]
+    affs = [HC.g1_mul_affine(k) for k in ks]
+    pts = C.pack_points(affs, spec, device=dev)
+    got = C.unpack_points(tuple(a[None] for a in M.msm_pippenger(FqOps(spec), pts, sc, 255, c=4)), spec)[0]
+    F = HC.FpHost(params.Q)
+    acc = (1, 1, 0)
+    for a, s in zip(affs, ss):
+        acc = HC.jac_add(F, acc, HC.jac_mul(F, HC.from_affine(F, a), s))
+    if got != HC.jac_to_affine(F, acc):
+        raise RuntimeError("64-point MSM on the card differs from the host oracle")
+
+
+def counters():
+    from zk_toolkit_tpu_torch.ops import curve_kernels as CK
+    from zk_toolkit_tpu_torch.ops import limbs as L
+
+    return {"mont_mul": L._mont_mul_fused, "point_add": CK.point_add_fused,
+            "point_double": CK.point_double_fused}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script measures the port on a GPU",
+              file=sys.stderr)
+        return 2
+    from zk_toolkit_tpu_torch import _build
+    from zk_toolkit_tpu_torch.bench import bench_msm
+
+    dev = torch.device("cuda")
+    smi = nvidia_smi()
+    with phase("build"):
+        print(f"device: {smi} | torch {torch.__version__} cuda {torch.version.cuda} "
+              f"| {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
+        secs = _build.build(timeout=PHASE_LIMIT_S["build"] - 20)
+        print("kernel build (parallel nvcc, s): " + json.dumps(
+            {k: round(v, 1) for k, v in secs.items()}), flush=True)
+        for name in _build.KERNELS:
+            for line in _build.ptxas_report(name).splitlines():
+                print(f"  {name}: {line.strip()}", flush=True)
+    with phase("parity"):
+        stats = parity_and_timing(dev)
+        bad = {k: v["mismatches"] for k, v in stats.items() if v["mismatches"] or v["max_abs_err"]}
+        if bad:
+            raise RuntimeError(f"kernels disagree with their plain versions: {bad}")
+    with phase("slice"):
+        small_msm_check(dev)
+        print("msm 64 points on the card == host oracle", flush=True)
+        for fn in counters().values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        out = bench_msm(1 << 20, dev, reps=3)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters().items()}
+        print(f"msm 2^20: known-dlog OK | {out['seconds']:.4f} s/msm "
+              f"({out['points_per_s']:.0f} points/s) wall {out['wall_seconds']:.4f} s | "
+              f"point gen first call {out['point_gen_first_s']:.3f} s | split ms "
+              + json.dumps({k: round(v, 2) for k, v in out["split_ms"].items()})
+              + f" | peak {out['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+        print("msm result: " + json.dumps(out), flush=True)
+        idle = [k for k, v in launches.items() if v == 0]
+        if idle:
+            raise RuntimeError(f"kernels not launched on the main path: {idle}")
+    kernels = []
+    for name, source, replaces, _ in KERNELS:
+        s = stats[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": s["max_abs_err"],
+            "mismatches": s["mismatches"], "batch": s["batch"], "ms": s["ms"],
+            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+            "bound_by": s["bound_by"], "library_ms": None,
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

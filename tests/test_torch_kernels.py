@@ -1,0 +1,153 @@
+"""The port's kernels B1 (mont_mul), B2 (point_add), B3 (point_double).
+
+The tests marked `cuda` need the card: each kernel against its plain
+PyTorch version on the same inputs on the card, bit for bit (tolerance 0:
+integer arithmetic), at batches that are not a multiple of the block size
+(1, 255, 257, 513, 1025), on the corner residues and on every case class
+of the complete addition; then the MSM through the kernels against the
+plain MSM and the host oracle. This file imports no JAX, so it runs on a
+machine that has none:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
+
+The unmarked tests check on the CPU the layout logic the kernels rely on.
+"""
+
+from __future__ import annotations
+
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from zk_toolkit_tpu_torch import _build
+from zk_toolkit_tpu_torch.curves.bls12_381 import params
+from zk_toolkit_tpu_torch.ops import curve_kernels as CK
+from zk_toolkit_tpu_torch.ops import curve_ops as C
+from zk_toolkit_tpu_torch.ops import limbs as L
+from zk_toolkit_tpu_torch.ops import msm as M
+from zk_toolkit_tpu_torch.ops.field_ops import FqOps
+from zk_toolkit_tpu_torch.protocols.groth16_device import fixed_base_g1
+from zk_toolkit_tpu_torch.utils import host_curve as HC
+from zk_toolkit_tpu_torch.utils import samples as S
+
+SECP256K1_P = 0xFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFEFFFFFC2F
+BATCHES = (1, 255, 257, 513, 1025)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: python -m pytest --noconftest -m cuda "
+                    "tests/test_torch_kernels.py")
+    return torch.device("cuda")
+
+
+def _equal(got, want):
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+# -- on the CPU: the views the kernels read --------------------------------------
+
+def test_as_rows_keeps_strided_views_and_copies_misaligned_ones():
+    buf = torch.zeros(2, 64, 72, dtype=torch.int32)
+    even_y = buf[:, 0::2, 24:48]                 # an up-sweep operand
+    r = CK.as_rows(even_y, 24)
+    assert r.data_ptr() == even_y.data_ptr() and r.stride() == (144, 1)
+    bcast = torch.zeros(24, dtype=torch.int32).expand(5, 24)
+    assert CK.as_rows(bcast, 24).stride() == (0, 1)
+    odd = torch.zeros(10, 26, dtype=torch.int32)[:, 1:25]   # row stride 26
+    r = CK.as_rows(odd, 24)
+    assert r.is_contiguous() and torch.equal(r, odd)
+    with pytest.raises(ValueError):
+        CK.as_rows(torch.zeros(3, 24, dtype=torch.int64), 24)
+
+
+def test_launch_refuses_cpu_operands():
+    spec = L.field_spec(params.Q)
+    a = torch.zeros(4, 24, dtype=torch.int32)
+    with pytest.raises(ValueError, match="on CUDA"):
+        _build.check_view(a, spec.K)
+
+
+def test_build_key_changes_with_the_sources(tmp_path, monkeypatch):
+    before = _build.lib_path("point_add")
+    assert before.startswith(_build.BUILD_DIR) and before.endswith(".so")
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for f in ("point_add.cu", "field.cuh", "curve.cuh"):
+        shutil.copy(f"{_build.CSRC}/{f}", src / f)
+    monkeypatch.setattr(_build, "CSRC", str(src))
+    assert _build.lib_path("point_add") == before
+    (src / "field.cuh").write_text(open(src / "field.cuh").read() + "\n// changed\n")
+    assert _build.lib_path("point_add") != before
+
+
+def test_plain_wrappers_never_launch_on_cpu():
+    spec = L.field_spec(params.Q)
+    ops = FqOps(spec)
+    counts = (L._mont_mul_fused.launches, CK.point_add_fused.launches,
+              CK.point_double_fused.launches)
+    p, q = S.point_pairs(np.random.default_rng(1), 8, "cpu")
+    C.point_add(ops, p, q)
+    C.point_double(ops, p)
+    ops.mul(p[0], q[0])
+    assert counts == (L._mont_mul_fused.launches, CK.point_add_fused.launches,
+                      CK.point_double_fused.launches)
+
+
+# -- on the card -------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [params.Q, params.R, SECP256K1_P], ids=["fq", "fr", "secp256k1"])
+def test_mont_mul_kernel_matches_plain(card, p):
+    spec = L.field_spec(p)
+    rng = np.random.default_rng(5)
+    for n in BATCHES:
+        a, b = S.corner_pairs(rng, n, spec, card)
+        before = L._mont_mul_fused.launches
+        got = L.mont_mul(a, b, spec)
+        assert L._mont_mul_fused.launches == before + 1
+        assert torch.equal(got, L.mont_mul_plain(a, b, spec)), n
+
+
+@pytest.mark.cuda
+def test_point_kernels_match_plain_on_every_case_class(card):
+    spec = L.field_spec(params.Q)
+    ops, plain = FqOps(spec), FqOps(spec, plain=True)
+    rng = np.random.default_rng(6)
+    for n in BATCHES:
+        p, q = S.point_pairs(rng, n, card)
+        _equal(C.point_add(ops, p, q), C._point_add_formula(plain, p, q))
+        _equal(C.point_double(ops, p), C._point_double_formula(plain, p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c", [(64, 8), (257, 4)])
+def test_msm_on_card_matches_plain_and_host_oracle(card, n, c):
+    spec = L.field_spec(params.Q)
+    rng = np.random.default_rng(n)
+    ks = [int(x) for x in rng.integers(1, 1 << 62, n)]
+    ks[3] = ks[2]
+    affs = [HC.g1_mul_affine(k) for k in ks]
+    sc = rng.integers(0, 1 << 16, size=(n, 16), dtype=np.uint32)
+    sc[:, 15] &= 0x7FFF
+    scalars = torch.from_numpy(sc.astype(np.int32)).to(card)
+    pts = C.pack_points(affs, spec, device=card)
+    before = CK.point_add_fused.launches
+    got = M.msm_pippenger(FqOps(spec), pts, scalars, 255, c=c)
+    assert CK.point_add_fused.launches > before
+    _equal(got, M.msm_pippenger(FqOps(spec, plain=True), pts, scalars, 255, c=c))
+    k_limbs = np.array([[k >> (16 * i) & 0xFFFF for i in range(16)] for k in ks], dtype=np.uint32)
+    want = HC.g1_mul_affine(HC._limb_dot_mod_r(k_limbs, sc, 255))
+    assert C.unpack_points(tuple(a[None] for a in got), spec)[0] == want
+
+
+@pytest.mark.cuda
+def test_fixed_base_g1_on_card_matches_host(card):
+    ks = [0, 1, 5, params.R - 1, params.R, 2**256 - 1]
+    limbs = np.array([[k >> (16 * i) & 0xFFFF for i in range(16)] for k in ks], dtype=np.int32)
+    pts = fixed_base_g1(torch.from_numpy(limbs).to(card))
+    assert C.unpack_points(pts, L.field_spec(params.Q)) == [HC.g1_mul_affine(k) for k in ks]

@@ -1,0 +1,130 @@
+"""The port's field layer (zk_toolkit_tpu_torch/ops/limbs.py, plain
+versions on the CPU) against the JAX package's ops/limbs.py (XLA-CPU path),
+bit for bit, for the Fq, Fr and secp256k1 moduli.
+
+Inputs are numpy-seeded random rows plus the adversarial corner residues of
+tests/test_pallas_parity.py (field boundaries, saturated limbs). The JAX
+reference runs once per modulus on all rows (one compile per function); the
+port runs on batches of 1, 255 and 257 rows cut from them. Tolerance:
+exact equality of every limb.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from zk_toolkit_tpu.curves import secp256k1
+from zk_toolkit_tpu.curves.bls12_381 import params
+from zk_toolkit_tpu.ops import limbs as JL
+from zk_toolkit_tpu_torch import convert
+from zk_toolkit_tpu_torch.ops import limbs as TL
+from zk_toolkit_tpu_torch.utils.bigint import ints_to_array
+
+MODULI = {
+    "bls12_381_fq": params.Q,
+    "bls12_381_fr": params.R,
+    "secp256k1_p": secp256k1.P,
+}
+BATCHES = (1, 255, 257)
+
+
+def _corner_values(p: int, k: int) -> list[int]:
+    vals = [0, 1, 2, p - 1, p - 2, (p - 1) // 2, (p + 1) // 2]
+    sat = int("ffff" * k, 16)
+    vals += [sat % p, (sat >> 16) % p, (1 << (16 * (k - 1))) % p]
+    return vals
+
+
+def _rows(p: int, seed: int):
+    """uint32 [513, K] pair (a, b): corner x corner pairs, then random."""
+    k = JL.field_spec(p).K
+    rng = np.random.default_rng(seed)
+    corners = _corner_values(p, k)
+    pairs = [(x, y) for x in corners for y in corners]
+    n = sum(BATCHES)
+    a = [x for x, _ in pairs]
+    b = [y for _, y in pairs]
+    while len(a) < n:
+        a.append(int.from_bytes(rng.bytes(2 * k), "little") % p)
+        b.append(int.from_bytes(rng.bytes(2 * k), "little") % p)
+    perm = rng.permutation(n)   # spread the corners over every batch
+    a = [a[i] for i in perm]
+    b = [b[i] for i in perm]
+    return ints_to_array(a, k), ints_to_array(b, k)
+
+
+def _batches(a: np.ndarray):
+    lo = 0
+    for n in BATCHES:
+        yield lo, lo + n
+        lo += n
+
+
+UNARY = {
+    "mont_sq": (lambda a, s: JL.mont_sq(a, s), TL.mont_sq),
+    "to_mont": (lambda a, s: JL.to_mont(a, s), TL.to_mont),
+    "from_mont": (lambda a, s: JL.from_mont(a, s), TL.from_mont),
+    "neg_mod": (lambda a, s: JL.neg_mod(a, s), TL.neg_mod),
+    "mont_inv": (lambda a, s: JL.mont_inv(a, s), TL.mont_inv),
+}
+BINARY = {
+    "mont_mul": (lambda a, b, s: JL.mont_mul(a, b, s), TL.mont_mul),
+    "add_mod": (lambda a, b, s: JL.add_mod(a, b, s), TL.add_mod),
+    "sub_mod": (lambda a, b, s: JL.sub_mod(a, b, s), TL.sub_mod),
+}
+
+
+@pytest.mark.parametrize("fn", sorted(BINARY))
+@pytest.mark.parametrize("name", sorted(MODULI))
+def test_binary_ops_match_jax(name, fn):
+    p = MODULI[name]
+    jspec, tspec = JL.field_spec(p), TL.field_spec(p)
+    a, b = _rows(p, seed=11)
+    jfn, tfn = BINARY[fn]
+    want = np.asarray(jfn(jnp.asarray(a), jnp.asarray(b), jspec))
+    for lo, hi in _batches(a):
+        got = tfn(convert.limbs_from_jax(a[lo:hi], "cpu"),
+                  convert.limbs_from_jax(b[lo:hi], "cpu"), tspec)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(convert.limbs_to_jax(got), want[lo:hi])
+
+
+@pytest.mark.parametrize("fn", sorted(UNARY))
+@pytest.mark.parametrize("name", sorted(MODULI))
+def test_unary_ops_match_jax(name, fn):
+    p = MODULI[name]
+    jspec, tspec = JL.field_spec(p), TL.field_spec(p)
+    a, _ = _rows(p, seed=12)
+    jfn, tfn = UNARY[fn]
+    want = np.asarray(jfn(jnp.asarray(a), jspec))
+    for lo, hi in _batches(a):
+        got = tfn(convert.limbs_from_jax(a[lo:hi], "cpu"), tspec)
+        np.testing.assert_array_equal(convert.limbs_to_jax(got), want[lo:hi])
+
+
+def test_neg_of_zero_is_zero():
+    spec = TL.field_spec(params.Q)
+    z = torch.zeros(3, spec.K, dtype=torch.int32)
+    assert torch.equal(TL.neg_mod(z, spec), z)
+
+
+def test_mont_inv_round_trip_host_oracle():
+    """x * x^-1 == 1 through the port alone, against Python ints."""
+    spec = TL.field_spec(params.Q)
+    xs = [3, params.Q - 1, 2**200 + 7]
+    xm = TL.pack(xs, spec, device="cpu")
+    inv = TL.unpack(TL.mont_inv(xm, spec), spec)
+    assert inv == [pow(x, -1, params.Q) for x in xs]
+
+
+def test_cuda_entry_points_raise_without_a_card():
+    """Entry points default to the card and never fall back silently."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    spec = TL.field_spec(params.Q)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TL.pack([1, 2], spec)

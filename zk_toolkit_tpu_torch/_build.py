@@ -1,0 +1,179 @@
+"""Builds the package's CUDA kernels and loads them.
+
+Each `csrc/<name>.cu` is compiled by nvcc for sm_90a into a shared library
+with a plain C interface, `build/zk_toolkit_tpu_torch/<name>-<digest>.so`
+under the repository root, where the digest hashes the sources, the headers
+and the flags; the library is loaded with ctypes. No PyTorch headers are
+compiled, so a build takes seconds, not minutes. A build runs at first use,
+or for all kernels at once (one nvcc process per source, started together)
+through `build()`. A failed build raises: there is no fallback.
+
+Every library exports one launcher with the same signature,
+
+    int zkt_<name>(int n_words, const long long* ptrs,
+                   const long long* strides, long long n,
+                   const unsigned* p_words, unsigned n0, void* stream)
+
+which launches on the given stream and returns cudaGetLastError().
+`launch()` raises if it is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+KERNELS = ("mont_mul", "point_add", "point_double")
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "zk_toolkit_tpu_torch")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256()
+    files = [os.path.join(CSRC, f"{name}.cu")] + sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+    for f in files:
+        with open(f, "rb") as fh:
+            h.update(os.path.basename(f).encode() + b"\0" + fh.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def lib_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"{name}-{_digest(name)}.so")
+
+
+def build(names=KERNELS, timeout: float = 600.0) -> dict[str, float]:
+    """Compiles every kernel in `names` whose library is missing, one nvcc
+    process per source, all started together. Returns the seconds each
+    build took (0.0 where the library was already there). The ptxas report
+    (registers, spills) goes to the `.log` beside each library."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    todo = [n for n in names if not os.path.exists(lib_path(n))]
+    procs = {}
+    t0 = time.perf_counter()
+    nvcc = _nvcc() if todo else None
+    for name in todo:
+        out = lib_path(name)
+        tmp = f"{out}.tmp{os.getpid()}"
+        log = open(out[:-3] + ".log", "w")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), tmp, out, log)
+    secs = {n: 0.0 for n in names}
+    failed = []
+    try:
+        for name, (proc, tmp, out, log) in procs.items():
+            left = max(1.0, timeout - (time.perf_counter() - t0))
+            try:
+                rc = proc.wait(timeout=left)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+                rc = "timeout"
+            log.close()
+            secs[name] = time.perf_counter() - t0
+            if rc == 0:
+                os.replace(tmp, out)
+            else:
+                with open(log.name) as fh:
+                    failed.append(f"{name} (nvcc: {rc}):\n{fh.read()[-4000:]}")
+    finally:
+        for proc, _, _, log in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return secs
+
+
+def ptxas_report(name: str) -> str:
+    """The ptxas lines (registers, spills) of the last build of `name`."""
+    path = lib_path(name)[:-3] + ".log"
+    if not os.path.exists(path):
+        return ""
+    with open(path) as fh:
+        return "".join(l for l in fh if "ptxas info" in l and ("Used" in l or "spill" in l))
+
+
+def _load(name: str) -> ctypes.CDLL:
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build((name,))
+            lib = ctypes.CDLL(lib_path(name))
+            fn = getattr(lib, f"zkt_{name}")
+            fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_longlong, ctypes.c_void_p, ctypes.c_uint,
+                           ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            lib.zkt_error_string.argtypes = [ctypes.c_int]
+            lib.zkt_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
+        return lib
+
+
+def check_view(t: torch.Tensor, k: int) -> torch.Tensor:
+    """`t` as an int32 [rows, k] CUDA view the kernels can read or write:
+    limb stride 1, row stride a multiple of 4 elements, 16-byte aligned.
+    Raises on anything else (callers make such views; see
+    ops/curve_kernels.as_rows)."""
+    if t.device.type != "cuda" or t.dtype != torch.int32 or t.dim() != 2 or t.shape[1] != k:
+        raise ValueError(f"kernel operand must be int32 [rows, {k}] on CUDA, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if t.stride(1) != 1 or t.stride(0) % 4 or t.data_ptr() % 16:
+        raise ValueError(f"kernel operand has strides {t.stride()} at offset "
+                         f"{t.data_ptr() % 16} mod 16; need limb stride 1, row "
+                         "stride % 4 == 0, 16-byte alignment")
+    return t
+
+
+def launch(name: str, spec, views, n: int) -> None:
+    """Launches kernel `name` over `n` rows of the int32 [rows, K] CUDA
+    `views` (inputs first, then outputs) for the field of `spec`, on the
+    current stream."""
+    lib = _load(name)
+    k = spec.K
+    if k not in (16, 24):
+        raise ValueError(f"kernels are built for K = 16 and 24 limbs, not {k}")
+    for v in views:
+        check_view(v, k)
+    m = len(views)
+    ptrs = (ctypes.c_longlong * m)(*[v.data_ptr() for v in views])
+    strides = (ctypes.c_longlong * m)(*[v.stride(0) for v in views])
+    words = spec.p_words32
+    p_words = (ctypes.c_uint * len(words))(*words)
+    stream = torch.cuda.current_stream(views[0].device).cuda_stream
+    rc = getattr(lib, f"zkt_{name}")(k // 2, ptrs, strides, n, p_words,
+                                     spec.n0inv32, stream)
+    if rc != 0:
+        raise RuntimeError(f"kernel {name} launch failed: CUDA error {rc} "
+                           f"({lib.zkt_error_string(rc).decode()})")
