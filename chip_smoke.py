@@ -7,8 +7,11 @@ port's bench entry point with the known-dlog check, and prints:
   phase lines, each with its seconds;
   a `kernels` JSON line: per kernel its route, source, the TPU kernel it
     replaces, launches during the MSM run, the largest limb difference from
-    its plain version (tolerance 0: integer arithmetic), its time, its plain
-    version's time and its bound at a shape the main path gives it;
+    its plain version (tolerance 0: integer arithmetic), its registers and
+    spills at K = 24 (ptxas), and at a shape the main path gives it its
+    time per call (`ms`), its device time per launch (`device_ms`), its
+    plain version's time and its bound; `timings` adds a second shape for
+    B2 (an up-sweep level of 2^22 pairs) and B3 (one point, r = 8);
   the card's name and power limit as nvidia-smi prints them;
   last, {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -37,8 +40,13 @@ HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 67e12 / 4
 
 # Odd sizes around the launch grid, plus every batch the kernels are timed
-# at (32, 8192, 2^16).
+# at (1, 32, 8192, 2^16).
 BATCHES = (1, 32, 255, 257, 513, 1025, 8192, 1 << 16)
+# B3's doubling counts held against r plain doublings: one, two, and the
+# c = 8 of the Horner combine and the fixed-base table.
+DOUBLINGS = (1, 2, 8)
+# The first up-sweep level of the 2^20 MSM: even/odd rows of [2^23, 3K].
+UPSWEEP_PAIRS = 1 << 22
 PHASE_LIMIT_S = {"build": 400, "parity": 300, "slice": 420}
 
 
@@ -70,20 +78,6 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, warm: int = 2) -> float:
-    """Mean device milliseconds of fn() over `reps` back-to-back calls."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def diff_stats(got, want):
     """(rows that differ, largest limb difference) between tuples of tensors."""
     rows = torch.zeros(got[0].reshape(-1, got[0].shape[-1]).shape[0], dtype=torch.bool,
@@ -100,8 +94,7 @@ def diff_stats(got, want):
 
 # name, source, the TPU kernel it replaces, and the batch it is timed at: one
 # the main path gives it (B1: to_affine of the 8192-entry fixed-base table;
-# B2: an up-sweep level of the 2^20 MSM; B3: the Horner and 255*T steps, one
-# point per window).
+# B2: an up-sweep level of the 2^20 MSM; B3: the 255*T step, 32 points).
 KERNELS = (
     ("mont_mul", "zk_toolkit_tpu_torch/csrc/mont_mul.cu",
      "zk_toolkit_tpu/ops/limbs.py:315 _mont_mul_kernel", 8192),
@@ -123,11 +116,35 @@ def bound_ms(n_bytes: float, n_imad: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def imad(k: int, muls: int, squares: int) -> int:
+    """32-bit multiply-adds of `muls` Montgomery products and `squares`
+    Montgomery squares at K limbs (N = K/2 words): a product is 2N^2 word
+    products for a*b and the reduction, two multiply-adds each; a square
+    needs N(N+1)/2 word products for a^2."""
+    n = k // 2
+    return muls * 4 * n * n + squares * (n * (n + 1) + 2 * n * n)
+
+
+def timed(fn, plain, reps: int, plain_reps: int, n_bytes: float, n_imad: float, **shape):
+    """One timing entry: time per call, device time per launch, host us per
+    call, the plain version's time and the bound."""
+    from zk_toolkit_tpu_torch.utils.profiling import cuda_ms, device_ms
+
+    dev_ms, host_us = device_ms(fn, reps)
+    b_ms, b_by = bound_ms(n_bytes, n_imad)
+    return dict(shape, ms=cuda_ms(fn, reps), device_ms=dev_ms, host_us=host_us,
+                plain_ms=cuda_ms(plain, plain_reps, warm=1) if plain else None,
+                bound_ms=b_ms, bound_by=b_by)
+
+
 def parity_and_timing(dev) -> dict:
     """Each kernel against its plain version on the card at every batch of
-    BATCHES (tolerance 0), then both timed at the kernel's main-path batch.
-    Returns per kernel: mismatching rows, max limb error, ms, plain_ms,
-    bound_ms, bound_by, batch."""
+    BATCHES (tolerance 0): B1 on three fields, B2 on contiguous and on
+    up-sweep (strided) views, B3 at every r of DOUBLINGS. Then each is timed
+    at its main-path batch, B2 also at a 2^22-pair up-sweep level (checked
+    against the plain result of the pairs it tiles) and B3 also on one
+    point at r = 8. Returns per kernel: mismatching rows, max limb error and
+    its timing entries."""
     from zk_toolkit_tpu_torch.curves.bls12_381 import params
     from zk_toolkit_tpu_torch.ops import curve_kernels as CK
     from zk_toolkit_tpu_torch.ops import curve_ops as C
@@ -137,8 +154,9 @@ def parity_and_timing(dev) -> dict:
 
     rng = np.random.default_rng(2024)
     fq = L.field_spec(params.Q)
+    k = fq.K
     plain = FqOps(fq, plain=True)
-    res = {name: {"mismatches": 0, "max_abs_err": 0} for name, *_ in KERNELS}
+    res = {name: {"mismatches": 0, "max_abs_err": 0, "timings": []} for name, *_ in KERNELS}
 
     def record(name, got, want):
         rows, err = diff_stats(got, want)
@@ -151,40 +169,84 @@ def parity_and_timing(dev) -> dict:
             a, b = S.corner_pairs(rng, n, spec, dev)
             record("mont_mul", (L._mont_mul_fused(a, b, spec),), (L.mont_mul_plain(a, b, spec),))
         pp, qq = S.point_pairs(rng, n, dev)
-        record("point_add", CK.point_add_fused(pp, qq, fq), C._point_add_formula(plain, pp, qq))
-        record("point_double", CK.point_double_fused(pp, fq), C._point_double_formula(plain, pp))
+        want = C._point_add_formula(plain, pp, qq)
+        record("point_add", CK.point_add_fused(pp, qq, fq), want)
+        record("point_add", CK.point_add_fused(*S.upsweep_views(pp, qq), fq), want)
+        for r in DOUBLINGS:
+            record("point_double", CK.point_double_n_fused(pp, fq, r), C.point_double_n(plain, pp, r))
         torch.cuda.synchronize()
-    print(f"parity batches {list(BATCHES)}: " + ", ".join(
-        f"{k} {v['mismatches']} mismatching rows" for k, v in res.items()), flush=True)
+    print(f"parity batches {list(BATCHES)} (B2 also on up-sweep views, B3 at r in "
+          f"{list(DOUBLINGS)}): " + ", ".join(
+              f"{name} {v['mismatches']} mismatching rows" for name, v in res.items()), flush=True)
 
-    k = fq.K
     word = 4 * k                                   # bytes of one coordinate
-    prod = k * k                                   # IMAD slots per Montgomery product
     n = TIMING_BATCH["mont_mul"]
     a, b = S.random_field(rng, n, fq, dev), S.random_field(rng, n, fq, dev)
     record("mont_mul", (L._mont_mul_fused(a, b, fq),), (L.mont_mul_plain(a, b, fq),))
-    res["mont_mul"].update(
-        batch=n, ms=cuda_ms(lambda: L._mont_mul_fused(a, b, fq), 200),
-        plain_ms=cuda_ms(lambda: L.mont_mul_plain(a, b, fq), 5))
-    res["mont_mul"]["bound_ms"], res["mont_mul"]["bound_by"] = bound_ms(n * 3 * word, n * prod)
+    res["mont_mul"]["timings"].append(timed(
+        lambda: L._mont_mul_fused(a, b, fq), lambda: L.mont_mul_plain(a, b, fq), 200, 5,
+        n * 3 * word, n * imad(k, 1, 0), batch=n))
+
     n = TIMING_BATCH["point_add"]                  # generic pairs, as in the stream
     pp, qq = S.point_pairs(rng, n, dev, generic_only=True)
-    record("point_add", CK.point_add_fused(pp, qq, fq), C._point_add_formula(plain, pp, qq))
+    want = C._point_add_formula(plain, pp, qq)
+    record("point_add", CK.point_add_fused(pp, qq, fq), want)
     finite = int(((pp[2] != 0).any(-1) & (qq[2] != 0).any(-1)).sum())
-    res["point_add"].update(
-        batch=n, ms=cuda_ms(lambda: CK.point_add_fused(pp, qq, fq), 50),
-        plain_ms=cuda_ms(lambda: C._point_add_formula(plain, pp, qq), 2, warm=1))
-    res["point_add"]["bound_ms"], res["point_add"]["bound_by"] = bound_ms(
-        n * 9 * word, finite * 16 * prod)
-    n = TIMING_BATCH["point_double"]
-    pp = tuple(c[:n].contiguous() for c in pp)
-    record("point_double", CK.point_double_fused(pp, fq), C._point_double_formula(plain, pp))
-    res["point_double"].update(
-        batch=n, ms=cuda_ms(lambda: CK.point_double_fused(pp, fq), 500),
-        plain_ms=cuda_ms(lambda: C._point_double_formula(plain, pp), 5))
-    res["point_double"]["bound_ms"], res["point_double"]["bound_by"] = bound_ms(
-        n * 6 * word, n * 7 * prod)
+    res["point_add"]["timings"].append(timed(
+        lambda: CK.point_add_fused(pp, qq, fq), lambda: C._point_add_formula(plain, pp, qq),
+        50, 2, n * 9 * word, finite * imad(k, 12, 4), batch=n))
+    # An up-sweep level: the 2^16 pairs tiled to 2^22, interleaved in one
+    # contiguous [2^23, 3K] tensor (2.4 GB) as _pair_halve reads it.
+    tiles = UPSWEEP_PAIRS // n
+    ev, od = S.upsweep_views(pp, qq, tiles)
+    got = CK.point_add_fused(ev, od, fq)
+    record("point_add", tuple(g.view(tiles, n, k) for g in got),
+           tuple(w.expand(tiles, n, k) for w in want))
+    del got
+    res["point_add"]["timings"].append(timed(
+        lambda: CK.point_add_fused(ev, od, fq), None, 5, 0,
+        UPSWEEP_PAIRS * 9 * word, tiles * finite * imad(k, 12, 4),
+        batch=UPSWEEP_PAIRS, layout="up-sweep even/odd views of [2^23, 3K]"))
+    del ev, od
+
+    for n, r in ((TIMING_BATCH["point_double"], 1), (1, 8)):
+        p1 = tuple(c[:n].contiguous() for c in pp)
+        record("point_double", CK.point_double_n_fused(p1, fq, r), C.point_double_n(plain, p1, r))
+        res["point_double"]["timings"].append(timed(
+            lambda: CK.point_double_n_fused(p1, fq, r), lambda: C.point_double_n(plain, p1, r),
+            200, 3, n * 6 * word, n * imad(k, 2 * r, 5 * r), batch=n, r=r))
     return res
+
+
+def launches_by_batch(dev, n: int = 1 << 20) -> dict:
+    """Kernel launches of one n-point MSM (the benchmark's inputs), by
+    kernel and batch size, counted at the launcher."""
+    from zk_toolkit_tpu_torch import _build
+    from zk_toolkit_tpu_torch.bench import msm_inputs
+    from zk_toolkit_tpu_torch.curves.bls12_381 import params
+    from zk_toolkit_tpu_torch.ops import limbs as L
+    from zk_toolkit_tpu_torch.ops import msm as M
+    from zk_toolkit_tpu_torch.ops.field_ops import FqOps
+    from zk_toolkit_tpu_torch.protocols.groth16_device import fixed_base_g1
+
+    _, _, base, scalars = msm_inputs(n, dev)
+    pts = fixed_base_g1(base)
+    seen: dict = {}
+    launch = _build.launch
+
+    def counting(name, spec, views, n, reps=1):
+        key = f"{n}" if reps == 1 else f"{n} x r={reps}"
+        seen.setdefault(name, {}).setdefault(key, 0)
+        seen[name][key] += 1
+        return launch(name, spec, views, n, reps)
+
+    _build.launch = counting
+    try:
+        M.msm_pippenger(FqOps(L.field_spec(params.Q)), pts, scalars, 255)
+        torch.cuda.synchronize()
+    finally:
+        _build.launch = launch
+    return seen
 
 
 def small_msm_check(dev):
@@ -236,9 +298,15 @@ def main() -> int:
         secs = _build.build(timeout=PHASE_LIMIT_S["build"] - 20)
         print("kernel build (parallel nvcc, s): " + json.dumps(
             {k: round(v, 1) for k, v in secs.items()}), flush=True)
-        for name in _build.KERNELS:
-            for line in _build.ptxas_report(name).splitlines():
-                print(f"  {name}: {line.strip()}", flush=True)
+        usage = {name: _build.ptxas_usage(name) for name in _build.KERNELS}
+        for name, per_n in usage.items():
+            for n_words, u in sorted(per_n.items()):
+                print(f"  ptxas {name} K={2 * n_words}: " + json.dumps(u), flush=True)
+        spilled = {name: usage[name].get(12) for name in ("point_add", "point_double")
+                   if usage[name].get(12, {}).get("registers") is None
+                   or usage[name][12].get("stack_bytes", 0) or usage[name][12].get("spill_bytes", 0)}
+        if spilled:
+            raise RuntimeError(f"B2/B3 at K = 24 use stack or spill (or no ptxas report): {spilled}")
     with phase("parity"):
         stats = parity_and_timing(dev)
         bad = {k: v["mismatches"] for k, v in stats.items() if v["mismatches"] or v["max_abs_err"]}
@@ -262,15 +330,28 @@ def main() -> int:
         idle = [k for k, v in launches.items() if v == 0]
         if idle:
             raise RuntimeError(f"kernels not launched on the main path: {idle}")
+        per_msm = launches_by_batch(dev)
+        print("launches per 2^20 MSM by batch: " + json.dumps(per_msm), flush=True)
+        # c = 8, W = 32: one r = 8 launch per Horner window, 7 for 255*T.
+        b3 = per_msm.get("point_double", {})
+        if b3.get("1 x r=8") != 32 or sum(b3.values()) != 32 + 7:
+            raise RuntimeError(f"B3 launches per MSM {b3}, expected 32 Horner (r = 8) + 7")
+        print(f"B3 launches per 2^20 MSM: {sum(b3.values())} (32 Horner at r = 8, 7 for 255*T)",
+              flush=True)
     kernels = []
     for name, source, replaces, _ in KERNELS:
         s = stats[name]
+        first = s["timings"][0]
+        u = usage[name].get(12, {})
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": s["max_abs_err"],
-            "mismatches": s["mismatches"], "batch": s["batch"], "ms": s["ms"],
-            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-            "bound_by": s["bound_by"], "library_ms": None,
+            "mismatches": s["mismatches"], "batch": first["batch"], "ms": first["ms"],
+            "device_ms": first["device_ms"], "host_us": first["host_us"],
+            "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"], "library_ms": None,
+            "registers": u.get("registers"), "stack_bytes": u.get("stack_bytes"),
+            "spill_bytes": u.get("spill_bytes"), "timings": s["timings"][1:],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -115,6 +115,30 @@ def test_point_double_matches_jax_formula(ops):
     _eq(TC.point_double(tops, _torch(p)), want)
 
 
+@pytest.mark.parametrize("r", [1, 3])
+def test_point_double_n_matches_jax_formula_applied_r_times(ops, r):
+    """2^r * P through the port's point_double_n (plain version on the CPU)
+    against r applications of the JAX package's _point_double_formula, at
+    batch 8 on numpy-seeded random representatives, infinity included."""
+    jops, tops = ops
+    rng = np.random.default_rng(40 + r)
+    lam = lambda: int(rng.integers(2, 1 << 62)) * int(rng.integers(2, 1 << 62)) % Q
+    aff = lambda: JHC.jac_to_affine(F1, JHC.jac_mul(F1, G, int(rng.integers(1, 1 << 62))))
+    p = _pack([_jac(aff(), lam()) for _ in range(7)] + [_jac(None, 1)])
+    dbl = jax.jit(lambda a: JC._point_double_formula(jops, a))
+    want = tuple(map(jnp.asarray, p))
+    for _ in range(r):
+        want = dbl(want)
+    _eq(TC.point_double_n(tops, _torch(p), r), want)
+
+
+def test_point_double_n_refuses_a_count_below_one(ops):
+    _, tops = ops
+    p, _ = _case_points(seed=9)
+    with pytest.raises(ValueError, match=">= 1"):
+        TC.point_double_n(tops, _torch(p), 0)
+
+
 def test_to_affine_matches_jax(ops):
     jops, tops = ops
     p, _ = _case_points(seed=7)

@@ -15,6 +15,8 @@ The unmarked tests check on the CPU the layout logic the kernels rely on.
 
 from __future__ import annotations
 
+import glob
+import os
 import shutil
 
 import numpy as np
@@ -77,12 +79,31 @@ def test_build_key_changes_with_the_sources(tmp_path, monkeypatch):
     assert before.startswith(_build.BUILD_DIR) and before.endswith(".so")
     src = tmp_path / "csrc"
     src.mkdir()
-    for f in ("point_add.cu", "field.cuh", "curve.cuh"):
+    for f in ["point_add.cu"] + [os.path.basename(h) for h in glob.glob(f"{_build.CSRC}/*.cuh")]:
         shutil.copy(f"{_build.CSRC}/{f}", src / f)
     monkeypatch.setattr(_build, "CSRC", str(src))
     assert _build.lib_path("point_add") == before
     (src / "field.cuh").write_text(open(src / "field.cuh").read() + "\n// changed\n")
     assert _build.lib_path("point_add") != before
+
+
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116point_add_kernelILi8EEEvN3zkt5ViewsILi9EEExNS1_7ModulusIXT_EEE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116point_add_kernelILi8EEEvN3zkt5ViewsILi9EEExNS1_7ModulusIXT_EEE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 96 registers, used 0 barriers, 560 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116point_add_kernelILi12EEEvN3zkt5ViewsILi9EEExNS1_7ModulusIXT_EEE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116point_add_kernelILi12EEEvN3zkt5ViewsILi9EEExNS1_7ModulusIXT_EEE
+    16 bytes stack frame, 24 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 128 registers, used 0 barriers, 576 bytes cumulative stack size
+"""
+
+
+def test_ptxas_report_is_parsed_per_instantiation():
+    assert _build.parse_ptxas(PTXAS_LOG) == {
+        8: {"stack_bytes": 0, "spill_bytes": 0, "registers": 96},
+        12: {"stack_bytes": 16, "spill_bytes": 40, "registers": 128},
+    }
 
 
 def test_plain_wrappers_never_launch_on_cpu():
@@ -122,6 +143,54 @@ def test_point_kernels_match_plain_on_every_case_class(card):
         p, q = S.point_pairs(rng, n, card)
         _equal(C.point_add(ops, p, q), C._point_add_formula(plain, p, q))
         _equal(C.point_double(ops, p), C._point_double_formula(plain, p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [1, 2, 8])
+def test_r_fold_doubling_kernel_matches_r_plain_doublings(card, r):
+    spec = L.field_spec(params.Q)
+    plain = FqOps(spec, plain=True)
+    rng = np.random.default_rng(10 + r)
+    for n in BATCHES:
+        p, _ = S.point_pairs(rng, n, card)
+        before = CK.point_double_fused.launches
+        got = C.point_double_n(FqOps(spec), p, r)
+        assert CK.point_double_fused.launches == before + 1
+        _equal(got, C.point_double_n(plain, p, r))
+
+
+def _triples_k16(rng, n, spec, dev):
+    """P, Q rows of random canonical (x, y, z) over a 256-bit field (the
+    kernels' formulas do not need a curve point): row % 6 is 0 P == Q
+    (another representative), 1 P == -Q, 2 P = inf, 3 Q = inf, 4 both
+    inf, 5 generic."""
+    mul = lambda a, b: L.mont_mul_plain(a, b, spec)
+    p = tuple(S.random_field(rng, n, spec, dev) for _ in range(3))
+    q = tuple(S.random_field(rng, n, spec, dev) for _ in range(3))
+    lam = S.random_field(rng, n, spec, dev)
+    l2 = mul(lam, lam)
+    same = (mul(p[0], l2), mul(p[1], mul(l2, lam)), mul(p[2], lam))
+    case = (torch.arange(n, device=dev) % 6)[:, None]
+    q = tuple(torch.where(case <= 1, s_, q_) for s_, q_ in zip(same, q))
+    q = (q[0], torch.where(case == 1, L.neg_mod(q[1], spec), q[1]), q[2])
+    zero = torch.zeros_like(p[2])
+    p = (p[0], p[1], torch.where((case == 2) | (case == 4), zero, p[2]))
+    q = (q[0], q[1], torch.where((case == 3) | (case == 4), zero, q[2]))
+    return p, q
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [params.R, SECP256K1_P], ids=["fr", "secp256k1"])
+def test_point_kernels_k16_build_matches_plain(card, p):
+    """B2 and B3 at K = 16 (the N = 8 instantiation, CIOS products) against
+    their plain versions."""
+    spec = L.field_spec(p)
+    plain = FqOps(spec, plain=True)
+    rng = np.random.default_rng(12)
+    for n in BATCHES:
+        pp, qq = _triples_k16(rng, n, spec, card)
+        _equal(CK.point_add_fused(pp, qq, spec), C._point_add_formula(plain, pp, qq))
+        _equal(CK.point_double_n_fused(pp, spec, 2), C.point_double_n(plain, pp, 2))
 
 
 @pytest.mark.cuda

@@ -8,7 +8,10 @@
   itself, limb for limb (the JAX side compiles for about a minute on the
   CPU, so there is only this one);
 - zk_toolkit_tpu_torch.protocols.groth16_device.fixed_base_g1 against
-  host_curve.jac_mul, and the port's bench_msm (known-dlog check) at n = 16.
+  host_curve.jac_mul, and the port's bench_msm (known-dlog check) at n = 16;
+- the two doubling chains that run r-fold (one point_double_n per window):
+  the Horner combine and the fixed-base table, against the host oracle at
+  c = 4 over 64-bit scalars.
 
 Tolerance: exact equality.
 """
@@ -29,6 +32,7 @@ from zk_toolkit_tpu.utils import host_curve as JHC
 from zk_toolkit_tpu_torch import convert
 from zk_toolkit_tpu_torch.bench import bench_msm
 from zk_toolkit_tpu_torch.ops import curve_ops as TC
+from zk_toolkit_tpu_torch.ops import fixed_base as TFB
 from zk_toolkit_tpu_torch.ops import limbs as TL
 from zk_toolkit_tpu_torch.ops import msm as TM
 from zk_toolkit_tpu_torch.ops.field_ops import FqOps as TFqOps
@@ -115,3 +119,45 @@ def test_bench_msm_checks_known_dlog_on_cpu():
     out = bench_msm(16, "cpu", reps=1, c=4)
     assert out["known_dlog_ok"] and out["n"] == 16 and out["device"] == "cpu"
     assert set(out["split_ms"]) == {"point_gen", "sort_gather", "upsweep_fenwick", "horner"}
+
+
+def _count_double_n(monkeypatch):
+    """Records the doubling count of every point_double_n call."""
+    calls = []
+    orig = TC.point_double_n
+
+    def counting(ops, p, r):
+        calls.append(r)
+        return orig(ops, p, r)
+
+    monkeypatch.setattr(TC, "point_double_n", counting)
+    return calls
+
+
+def test_horner_combine_doubles_once_per_window_and_matches_host(monkeypatch):
+    """_horner_combine at c = 4 over 16 windows of random points: one
+    4-fold point_double_n per window, and sum_w 2^(4w) S_w as the host
+    computes it."""
+    rng = np.random.default_rng(64)
+    ks = [int(rng.integers(1, 1 << 62)) for _ in range(16)]
+    ks[5] = 0                                              # an infinity window
+    spec = TL.field_spec(Q)
+    pts = TC.pack_points([THC.g1_mul_affine(k) for k in ks], spec, device="cpu")
+    calls = _count_double_n(monkeypatch)
+    got = TM._horner_combine(TFqOps(spec), pts, 4)
+    assert calls == [4] * 16
+    want = sum(k << (4 * w) for w, k in enumerate(ks)) % R
+    assert _affine(got) == THC.g1_mul_affine(want)
+
+
+def test_build_table_doubles_once_per_window_and_matches_host(monkeypatch):
+    """build_table(G, 64 bits, c = 4): one 4-fold point_double_n per window,
+    and every entry w * 16 + d equal to d * 2^(4w) * G from the host."""
+    spec = TL.field_spec(Q)
+    base = TC.pack_points([THC.g1_mul_affine(1)], spec, device="cpu")
+    calls = _count_double_n(monkeypatch)
+    ax, ay, inf = TFB.build_table(TFqOps(spec), base, 64, 4)
+    assert calls == [4] * 16
+    xs, ys = TL.unpack(ax, spec), TL.unpack(ay, spec)
+    got = [None if i else (x, y) for x, y, i in zip(xs, ys, inf.tolist())]
+    assert got == [THC.g1_mul_affine(d << (4 * w)) for w in range(16) for d in range(16)]

@@ -10,12 +10,15 @@ through `build()`. A failed build raises: there is no fallback.
 
 Every library exports one launcher with the same signature,
 
-    int zkt_<name>(int n_words, const long long* ptrs,
-                   const long long* strides, long long n,
-                   const unsigned* p_words, unsigned n0, void* stream)
+    int zkt_<name>(int n_words, const long long* args, long long n,
+                   const unsigned* p_words, unsigned n0, int reps,
+                   void* stream)
 
-which launches on the given stream and returns cudaGetLastError().
-`launch()` raises if it is not 0.
+where `args` holds the views' base pointers, then their row strides, and
+`reps` is B3's doubling count (1 for the others). It launches on the given
+stream and returns cudaGetLastError(); `launch()` raises if it is not 0.
+The loaded function and each field's modulus words are cached, so a
+launch costs the view checks, one argument array and the ctypes call.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -41,7 +45,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[str, tuple] = {}      # name -> (launcher, error-string function)
+_moduli: dict[int, tuple] = {}   # p -> (p's 32-bit words as a ctypes array, n0)
 _lock = threading.Lock()
 
 
@@ -115,65 +120,111 @@ def build(names=KERNELS, timeout: float = 600.0) -> dict[str, float]:
     return secs
 
 
-def ptxas_report(name: str) -> str:
-    """The ptxas lines (registers, spills) of the last build of `name`."""
+def ptxas_usage(name: str) -> dict[int, dict]:
+    """Per instantiation of kernel `name` in its last build, keyed by the
+    words per element N (K = 2N limbs), what ptxas reported: registers,
+    stack frame and spill bytes. {} when there is no build log."""
     path = lib_path(name)[:-3] + ".log"
     if not os.path.exists(path):
-        return ""
+        return {}
     with open(path) as fh:
-        return "".join(l for l in fh if "ptxas info" in l and ("Used" in l or "spill" in l))
+        return parse_ptxas(fh.read())
 
 
-def _load(name: str) -> ctypes.CDLL:
+def parse_ptxas(log: str) -> dict[int, dict]:
+    """Parses `-Xptxas -v` output; an entry's N is the template argument of
+    its mangled name (`ILi12E` for N = 12)."""
+    usage: dict[int, dict] = {}
+    cur = None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            n = re.search(r"ILi(\d+)E", m.group(1))
+            cur = usage.setdefault(int(n.group(1)), {}) if n else None
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["stack_bytes"] = int(m.group(1))
+            cur["spill_bytes"] = int(m.group(2)) + int(m.group(3))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return usage
+
+
+def _kernel(name: str) -> tuple:
+    """(launcher, error-string function) of kernel `name`, built and loaded
+    at first use."""
+    fns = _fns.get(name)
+    if fns is not None:
+        return fns
     with _lock:
-        lib = _libs.get(name)
-        if lib is None:
+        if name not in _fns:
             build((name,))
             lib = ctypes.CDLL(lib_path(name))
             fn = getattr(lib, f"zkt_{name}")
-            fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_longlong, ctypes.c_void_p, ctypes.c_uint,
+            fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+                           ctypes.c_void_p, ctypes.c_uint, ctypes.c_int,
                            ctypes.c_void_p]
             fn.restype = ctypes.c_int
             lib.zkt_error_string.argtypes = [ctypes.c_int]
             lib.zkt_error_string.restype = ctypes.c_char_p
-            _libs[name] = lib
-        return lib
+            _fns[name] = (fn, lib.zkt_error_string)
+        return _fns[name]
 
 
-def check_view(t: torch.Tensor, k: int) -> torch.Tensor:
-    """`t` as an int32 [rows, k] CUDA view the kernels can read or write:
-    limb stride 1, row stride a multiple of 4 elements, 16-byte aligned.
-    Raises on anything else (callers make such views; see
-    ops/curve_kernels.as_rows)."""
-    if t.device.type != "cuda" or t.dtype != torch.int32 or t.dim() != 2 or t.shape[1] != k:
+def _modulus(spec) -> tuple:
+    m = _moduli.get(spec.p)
+    if m is None:
+        words = spec.p_words32
+        m = _moduli[spec.p] = ((ctypes.c_uint * len(words))(*words), spec.n0inv32)
+    return m
+
+
+def _stream(device: torch.device) -> int:
+    """The raw handle of the current stream of `device` (the call Triton's
+    launcher makes: no Stream object is built)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def check_view(t: torch.Tensor, k: int) -> tuple[int, int]:
+    """(data pointer, row stride) of `t`, an int32 [rows, k] CUDA view the
+    kernels can read or write: limb stride 1, row stride a multiple of 4
+    elements, 16-byte aligned. Raises on anything else (callers make such
+    views; see ops/curve_kernels.as_rows)."""
+    if not t.is_cuda or t.dtype != torch.int32 or t.dim() != 2 or t.shape[1] != k:
         raise ValueError(f"kernel operand must be int32 [rows, {k}] on CUDA, got "
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    if t.stride(1) != 1 or t.stride(0) % 4 or t.data_ptr() % 16:
+    s0, s1 = t.stride()
+    ptr = t.data_ptr()
+    if s1 != 1 or s0 % 4 or ptr % 16:
         raise ValueError(f"kernel operand has strides {t.stride()} at offset "
-                         f"{t.data_ptr() % 16} mod 16; need limb stride 1, row "
+                         f"{ptr % 16} mod 16; need limb stride 1, row "
                          "stride % 4 == 0, 16-byte alignment")
-    return t
+    return ptr, s0
 
 
-def launch(name: str, spec, views, n: int) -> None:
+_arg_arrays: dict[int, type] = {}   # views -> ctypes array type of 2 * views
+
+
+def launch(name: str, spec, views, n: int, reps: int = 1) -> None:
     """Launches kernel `name` over `n` rows of the int32 [rows, K] CUDA
     `views` (inputs first, then outputs) for the field of `spec`, on the
-    current stream."""
-    lib = _load(name)
+    current stream; `reps` is B3's doubling count."""
+    fn, error_string = _kernel(name)
     k = spec.K
     if k not in (16, 24):
         raise ValueError(f"kernels are built for K = 16 and 24 limbs, not {k}")
-    for v in views:
-        check_view(v, k)
     m = len(views)
-    ptrs = (ctypes.c_longlong * m)(*[v.data_ptr() for v in views])
-    strides = (ctypes.c_longlong * m)(*[v.stride(0) for v in views])
-    words = spec.p_words32
-    p_words = (ctypes.c_uint * len(words))(*words)
-    stream = torch.cuda.current_stream(views[0].device).cuda_stream
-    rc = getattr(lib, f"zkt_{name}")(k // 2, ptrs, strides, n, p_words,
-                                     spec.n0inv32, stream)
+    ptrs, strides = zip(*[check_view(v, k) for v in views])
+    arr = _arg_arrays.get(m)
+    if arr is None:
+        arr = _arg_arrays[m] = ctypes.c_longlong * (2 * m)
+    p_words, n0 = _modulus(spec)
+    rc = fn(k // 2, arr(*ptrs, *strides), n, p_words, n0, reps, _stream(views[0].device))
     if rc != 0:
         raise RuntimeError(f"kernel {name} launch failed: CUDA error {rc} "
-                           f"({lib.zkt_error_string(rc).decode()})")
+                           f"({error_string(rc).decode()})")

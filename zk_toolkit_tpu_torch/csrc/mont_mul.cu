@@ -8,6 +8,10 @@
 // into K/2 32-bit words in registers, and the product and reduction run as
 // word-serial Montgomery (CIOS) with 32x32->64 multiplies, K^2/2 of them.
 //
+// The Montgomery core it calls (field.cuh) is the carry-chain one shared
+// with B2 and B3; the kernel's design, batch and wrapper are as first
+// written.
+//
 // What bounds it on an H100: per element it reads 2 x 4K bytes and writes
 // 4K bytes (288 B at K = 24: 86 ps at 3.35 TB/s), and it issues K^2/2 wide
 // multiplies, each two 32-bit multiply-add slots, K^2 = 576 in all (34 ps
@@ -33,27 +37,27 @@ __global__ void __launch_bounds__(zkt::kThreads)
 }
 
 template <int N>
-int launch(const long long* ptrs, const long long* strides, long long n,
-           const unsigned* p_words, unsigned n0, cudaStream_t stream) {
+int launch(const long long* args, long long n, const unsigned* p_words,
+           unsigned n0, cudaStream_t stream) {
   mont_mul_kernel<N><<<zkt::grid_for(n), zkt::kThreads, 0, stream>>>(
-      zkt::make_views<3>(ptrs, strides), n,
-      zkt::make_modulus<N>(p_words, n0));
+      zkt::make_views<3>(args), n, zkt::make_modulus<N>(p_words, n0));
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int zkt_mont_mul(int n_words, const long long* ptrs,
-                            const long long* strides, long long n,
-                            const unsigned* p_words, unsigned n0,
+extern "C" int zkt_mont_mul(int n_words, const long long* args, long long n,
+                            const unsigned* p_words, unsigned n0, int reps,
                             void* stream) {
+  if (reps != 1) return (int)cudaErrorInvalidValue;
+  if (!zkt::modulus_fits(n_words, p_words)) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   switch (n_words) {
     case 8:
-      return launch<8>(ptrs, strides, n, p_words, n0, s);
+      return launch<8>(args, n, p_words, n0, s);
     case 12:
-      return launch<12>(ptrs, strides, n, p_words, n0, s);
+      return launch<12>(args, n, p_words, n0, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -5,11 +5,11 @@ Point representation: a `(x, y, z)` tuple of int32 Montgomery limb tensors
 [..., K]; infinity <=> z == 0 (canonically (1, 1, 0) in Montgomery form).
 Scalars are plain (non-Montgomery) 16-bit limb tensors [..., S].
 
-`point_add` / `point_double` launch kernels B2 / B3 (ops/curve_kernels.py)
-for every CUDA batch of a base-field FqOps, at every batch size; the
-formulas `_point_add_formula` / `_point_double_formula` are their plain
-versions, run for CPU tensors and for FqOps(plain=True), the reference the
-kernels are held against.
+`point_add` / `point_double` / `point_double_n` launch kernels B2 / B3
+(ops/curve_kernels.py) for every CUDA batch of a base-field FqOps, at every
+batch size; the formulas `_point_add_formula` / `_point_double_formula` are
+their plain versions, run for CPU tensors and for FqOps(plain=True), the
+reference the kernels are held against.
 """
 
 from __future__ import annotations
@@ -52,6 +52,12 @@ def _s(*xs):
     return torch.stack(xs, dim=0)
 
 
+def _same_shape(coords):
+    """The coordinates broadcast to one shape (as they are, when they have it)."""
+    shape = coords[0].shape
+    return coords if all(c.shape == shape for c in coords) else torch.broadcast_tensors(*coords)
+
+
 def _use_kernels(ops, pts) -> bool:
     """Kernels B2/B3 take every CUDA batch of a base-field FqOps."""
     return (isinstance(ops, FqOps) and not ops.plain
@@ -59,9 +65,19 @@ def _use_kernels(ops, pts) -> bool:
 
 
 def point_double(ops, p):
+    return point_double_n(ops, p, 1)
+
+
+def point_double_n(ops, p, r: int):
+    """2^r * P: r doublings, one launch of kernel B3 on a card; the plain
+    version is r applications of `_point_double_formula`."""
+    if r < 1:
+        raise ValueError(f"doubling count must be >= 1, got {r}")
     if _use_kernels(ops, (p,)):
-        return CK.point_double_fused(torch.broadcast_tensors(*p), ops.spec)
-    return _point_double_formula(ops, p)
+        return CK.point_double_n_fused(_same_shape(tuple(p)), ops.spec, r)
+    for _ in range(r):
+        p = _point_double_formula(ops, p)
+    return p
 
 
 def _point_double_formula(ops, p):
@@ -82,7 +98,7 @@ def _point_double_formula(ops, p):
 
 def point_add(ops, p, q):
     if _use_kernels(ops, (p, q)):
-        coords = torch.broadcast_tensors(*p, *q)
+        coords = _same_shape((*p, *q))
         return CK.point_add_fused(coords[:3], coords[3:], ops.spec)
     return _point_add_formula(ops, p, q)
 

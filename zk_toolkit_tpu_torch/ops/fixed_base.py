@@ -42,8 +42,7 @@ def build_table(ops, base_jac, nbits: int, c: int):
     p = base_jac
     for _ in range(n_win):
         g_ws.append(p)
-        for _ in range(c):
-            p = C.point_double(ops, p)
+        p = C.point_double_n(ops, p, c)
     g_ws = tuple(torch.cat([g[i] for g in g_ws], dim=0) for i in range(3))  # [W, K]
 
     # d * G_w for d = 0..2^c-1: running batched add over the window axis.

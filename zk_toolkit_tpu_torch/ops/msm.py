@@ -14,7 +14,7 @@ Per group of W windows, every stage a batched device op:
                boundary positions p_k by binary search on the sorted keys,
                exclusive prefix sums at the boundaries by Fenwick
                decomposition over the up-sweep levels
-  5. combine:  Horner over windows, c doublings per step.
+  5. combine:  Horner over windows, c doublings per step in one launch.
 
 Window-major layout [W, N, ...]: N is a power of two, so the even/odd rows
 of a level, flattened over all windows, are one strided [W*N/2, K] view
@@ -146,8 +146,7 @@ def _horner_combine(ops, window_pts, c: int):
     w = window_pts[0].shape[0]
     acc = C.infinity_like(ops, tuple(a[0] for a in window_pts))
     for i in range(w):
-        for _ in range(c):
-            acc = C.point_double(ops, acc)
+        acc = C.point_double_n(ops, acc, c)
         acc = C.point_add(ops, acc, tuple(a[w - 1 - i] for a in window_pts))
     return acc
 

@@ -1,4 +1,5 @@
-"""Named time spans for the stages of a run.
+"""Timing on the card: named time spans for the stages of a run, and the
+per-call timers of chip_smoke.py, kernel_ab.py and kernel_variants.py.
 
 On a CUDA device each span records a pair of CUDA events on the current
 stream, so a span measures device time between its start and end without
@@ -44,3 +45,46 @@ class Spans:
             torch.cuda.synchronize()
             return {k: sum(s.elapsed_time(e) for s, e in v) for k, v in self._events.items()}
         return {k: sum((e - s) * 1e3 for s, e in v) for k, v in self._events.items()}
+
+
+# A spin on the card long enough to cover the host's enqueue of a timed run
+# of small launches (about 50 ms at the H100's 1.98 GHz boost clock).
+SLEEP_CYCLES = 100_000_000
+
+
+def cuda_ms(fn, reps: int, warm: int = 2) -> float:
+    """Mean milliseconds per call of fn() over `reps` back-to-back calls,
+    between CUDA events: the card's time where the card is the limit, the
+    host's time per call where the host is."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int):
+    """(device ms per call, host us per call) of fn(). The calls queue behind
+    a spin on the card, so the events bracket the card's work alone and the
+    host clock the enqueue alone; raises if the host took longer to enqueue
+    them than the spin lasted."""
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    ev[2].record()
+    torch.cuda.synchronize()
+    if host_ms >= ev[0].elapsed_time(ev[1]):
+        raise RuntimeError(f"enqueue of {reps} calls ({host_ms:.1f} ms) outlasted the spin")
+    return ev[1].elapsed_time(ev[2]) / reps, host_ms * 1e3 / reps

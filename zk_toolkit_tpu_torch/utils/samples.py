@@ -1,7 +1,8 @@
 """Sample inputs for holding the kernels against their plain versions:
 random canonical field elements, the adversarial corner residues of the JAX
-package's parity tests, and G1 point pairs in every case class of the
-complete addition. Used by chip_smoke.py and tests/test_torch_kernels.py."""
+package's parity tests, G1 point pairs in every case class of the complete
+addition, and pairs laid out as an up-sweep level. Used by chip_smoke.py,
+kernel_variants.py and tests/test_torch_kernels.py."""
 
 from __future__ import annotations
 
@@ -67,3 +68,16 @@ def point_pairs(rng, n: int, dev, generic_only: bool = False):
     p = (p[0], p[1], torch.where(((case == 2) | (case == 4))[:, None], zero, p[2]))
     q = (q[0], q[1], torch.where(((case == 3) | (case == 4))[:, None], zero, q[2]))
     return p, q
+
+
+def upsweep_views(p, q, tiles: int = 1):
+    """P and Q (same-size batches) as an up-sweep level lays pairs out: the
+    even and odd rows of one contiguous [2 * tiles * n, 3K] tensor whose
+    rows interleave P and Q, repeated `tiles` times. Returns the (x, y, z)
+    views of the even rows and of the odd rows."""
+    n, k = p[0].shape
+    buf = torch.empty((tiles, n, 2, 3 * k), dtype=torch.int32, device=p[0].device)
+    buf[:, :, 0] = torch.cat(p, -1)
+    buf[:, :, 1] = torch.cat(q, -1)
+    flat = buf.view(-1, 3 * k)
+    return tuple(tuple(flat[s::2, c * k:(c + 1) * k] for c in range(3)) for s in (0, 1))
