@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (zk_toolkit_tpu_torch) on one NVIDIA
 GPU: builds the kernels from csrc/, holds each against its plain PyTorch
-version on the card, drives the 2^20-point BLS12-381 G1 MSM through the
-port's bench entry point with the known-dlog check, and prints:
+version on the card (B1's static-exponent chain too), drives the 2^20-point
+BLS12-381 G1 MSM through the port's bench entry point with the known-dlog
+check, and prints:
 
   phase lines, each with its seconds;
   a `kernels` JSON line: per kernel its route, source, the TPU kernel it
     replaces, launches during the MSM run, the largest limb difference from
     its plain version (tolerance 0: integer arithmetic), its registers and
-    spills at K = 24 (ptxas), and at a shape the main path gives it its
-    time per call (`ms`), its device time per launch (`device_ms`), its
-    plain version's time and its bound; `timings` adds a second shape for
-    B2 (an up-sweep level of 2^22 pairs) and B3 (one point, r = 8);
+    spills at K = 24 (ptxas, every entry of its library), and at a shape
+    the main path gives it its time per call (`ms`), its device time per
+    launch (`device_ms`), its plain version's time and its bound; `timings`
+    adds further shapes: for B1 the inverse as one product launch per step
+    (the path before the chain entry), the product at 8192 rows, the
+    inverse of one element and the product at 2^20 rows of Fr and Fq; for B2 an
+    up-sweep level of 2^22 pairs; for B3 one point at r = 8;
   the card's name and power limit as nvidia-smi prints them;
   last, {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -24,6 +28,7 @@ it exits 2 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import signal
 import subprocess
@@ -45,6 +50,15 @@ BATCHES = (1, 32, 255, 257, 513, 1025, 8192, 1 << 16)
 # B3's doubling counts held against r plain doublings: one, two, and the
 # c = 8 of the Horner combine and the fixed-base table.
 DOUBLINGS = (1, 2, 8)
+# B1's chain against the plain chain of products: odd sizes around the
+# grid, the 32 points of a fold and the 8192 table entries of to_affine.
+CHAIN_BATCHES = (1, 32, 255, 257, 8192)
+# The product at the NTT and SpMV batches of the Groth16 prove.
+LARGE_BATCH = 1 << 20
+# B1 launches over one bench_msm(2^20) run: two to_affine (the fixed-base
+# table, then the MSM result), each one chain launch for the inverse and 4
+# products, then 2 from_mont of the result's coordinates.
+B1_LAUNCHES_PER_BENCH = 2 * (1 + 4) + 2
 # The first up-sweep level of the 2^20 MSM: even/odd rows of [2^23, 3K].
 UPSWEEP_PAIRS = 1 << 22
 PHASE_LIMIT_S = {"build": 400, "parity": 300, "slice": 420}
@@ -93,8 +107,9 @@ def diff_stats(got, want):
 # -- phases ------------------------------------------------------------------------
 
 # name, source, the TPU kernel it replaces, and the batch it is timed at: one
-# the main path gives it (B1: to_affine of the 8192-entry fixed-base table;
-# B2: an up-sweep level of the 2^20 MSM; B3: the 255*T step, 32 points).
+# the main path gives it (B1: the inverse in to_affine of the 8192-entry
+# fixed-base table, one chain launch; B2: an up-sweep level of the 2^20 MSM;
+# B3: the 255*T step, 32 points).
 KERNELS = (
     ("mont_mul", "zk_toolkit_tpu_torch/csrc/mont_mul.cu",
      "zk_toolkit_tpu/ops/limbs.py:315 _mont_mul_kernel", 8192),
@@ -139,12 +154,15 @@ def timed(fn, plain, reps: int, plain_reps: int, n_bytes: float, n_imad: float, 
 
 def parity_and_timing(dev) -> dict:
     """Each kernel against its plain version on the card at every batch of
-    BATCHES (tolerance 0): B1 on three fields, B2 on contiguous and on
-    up-sweep (strided) views, B3 at every r of DOUBLINGS. Then each is timed
-    at its main-path batch, B2 also at a 2^22-pair up-sweep level (checked
-    against the plain result of the pairs it tiles) and B3 also on one
-    point at r = 8. Returns per kernel: mismatching rows, max limb error and
-    its timing entries."""
+    BATCHES (tolerance 0): B1's product on three fields, B2 on contiguous and
+    on up-sweep (strided) views, B3 at every r of DOUBLINGS; B1's chain at
+    every batch of CHAIN_BATCHES on three fields for the exponents p - 2,
+    1, 101b and one of 402 bits (two launches), zero rows included. Then each
+    is timed at its main-path batch, B1 also as the product at 8192 rows,
+    the inverse of one element and the product at 2^20 rows of Fr and Fq, B2
+    also at a 2^22-pair up-sweep level (checked against the plain result of
+    the pairs it tiles) and B3 also on one point at r = 8. Returns per
+    kernel: mismatching rows, max limb error and its timing entries."""
     from zk_toolkit_tpu_torch.curves.bls12_381 import params
     from zk_toolkit_tpu_torch.ops import curve_kernels as CK
     from zk_toolkit_tpu_torch.ops import curve_ops as C
@@ -179,13 +197,61 @@ def parity_and_timing(dev) -> dict:
           f"{list(DOUBLINGS)}): " + ", ".join(
               f"{name} {v['mismatches']} mismatching rows" for name, v in res.items()), flush=True)
 
+    long_exp = (1,) + tuple(int(b) for b in rng.integers(0, 2, 401))
+    before = res["mont_mul"]["mismatches"]
+    chain_launches = L._mont_mul_fused.launches
+    for n in CHAIN_BATCHES:
+        for p in (params.Q, params.R, SECP256K1_P):
+            spec = L.field_spec(p)
+            a = S.chain_inputs(rng, n, spec, dev)
+            for bits in (spec.p_minus_2_bits, (1,), (1, 0, 1), long_exp):
+                record("mont_mul", (L.mont_pow_static(a, bits, spec),),
+                       (L.mont_pow_static_plain(a, bits, spec),))
+        torch.cuda.synchronize()
+    chain_launches = L._mont_mul_fused.launches - chain_launches
+    want_launches = len(CHAIN_BATCHES) * 3 * (1 + 1 + 1 + 2)
+    if chain_launches != want_launches:
+        raise RuntimeError(f"chain parity made {chain_launches} B1 launches, expected "
+                           f"{want_launches} (one per 384 exponent bits)")
+    print(f"parity of B1's chain, batches {list(CHAIN_BATCHES)}, exponents p - 2, 1, 101b "
+          f"and {len(long_exp)} bits, {chain_launches} launches: "
+          f"{res['mont_mul']['mismatches'] - before} mismatching rows", flush=True)
+
     word = 4 * k                                   # bytes of one coordinate
-    n = TIMING_BATCH["mont_mul"]
-    a, b = S.random_field(rng, n, fq, dev), S.random_field(rng, n, fq, dev)
-    record("mont_mul", (L._mont_mul_fused(a, b, fq),), (L.mont_mul_plain(a, b, fq),))
-    res["mont_mul"]["timings"].append(timed(
-        lambda: L._mont_mul_fused(a, b, fq), lambda: L.mont_mul_plain(a, b, fq), 200, 5,
-        n * 3 * word, n * imad(k, 1, 0), batch=n))
+    inv_bits = fq.p_minus_2_bits
+    sets = sum(inv_bits)
+    for n, reps in ((TIMING_BATCH["mont_mul"], 20), (1, 20)):
+        a = S.random_field(rng, n, fq, dev)
+        record("mont_mul", (L.mont_inv(a, fq),), (L.mont_inv_plain(a, fq),))
+        res["mont_mul"]["timings"].append(timed(
+            lambda: L.mont_inv(a, fq), lambda: L.mont_inv_plain(a, fq), reps, 1,
+            n * 2 * word, n * imad(k, sets, len(inv_bits)), batch=n,
+            entry="mont_pow", what="mont_inv (Fq, one launch)"))
+        # The same inverse as one product launch per square and multiply,
+        # the path of every inverse before the chain entry (610 launches).
+        steps = functools.partial(L._mont_mul_fused, spec=fq)
+        record("mont_mul", (L.mont_inv(a, fq, steps),), (L.mont_inv_plain(a, fq),))
+        res["mont_mul"]["timings"].append(timed(
+            lambda: L.mont_inv(a, fq, steps), None, 1, 0,
+            n * 2 * word, n * imad(k, sets, len(inv_bits)), batch=n, entry="mont_mul",
+            what=f"mont_inv (Fq) as {sets + len(inv_bits)} product launches"))
+        if n == 1:
+            continue
+        b = S.random_field(rng, n, fq, dev)
+        record("mont_mul", (L._mont_mul_fused(a, b, fq),), (L.mont_mul_plain(a, b, fq),))
+        res["mont_mul"]["timings"].append(timed(
+            lambda: L._mont_mul_fused(a, b, fq), lambda: L.mont_mul_plain(a, b, fq), 200, 5,
+            n * 3 * word, n * imad(k, 1, 0), batch=n, entry="mont_mul", what="product (Fq)"))
+    for p in (params.R, params.Q):
+        spec = L.field_spec(p)
+        n = LARGE_BATCH
+        a, b = S.random_field(rng, n, spec, dev), S.random_field(rng, n, spec, dev)
+        record("mont_mul", (L._mont_mul_fused(a, b, spec),), (L.mont_mul_plain(a, b, spec),))
+        res["mont_mul"]["timings"].append(timed(
+            lambda: L._mont_mul_fused(a, b, spec), lambda: L.mont_mul_plain(a, b, spec), 50, 2,
+            n * 3 * 4 * spec.K, n * imad(spec.K, 1, 0), batch=n, K=spec.K, entry="mont_mul",
+            what="product, contiguous [2^20, K]"))
+        del a, b
 
     n = TIMING_BATCH["point_add"]                  # generic pairs, as in the stream
     pp, qq = S.point_pairs(rng, n, dev, generic_only=True)
@@ -234,11 +300,11 @@ def launches_by_batch(dev, n: int = 1 << 20) -> dict:
     seen: dict = {}
     launch = _build.launch
 
-    def counting(name, spec, views, n, reps=1):
+    def counting(name, spec, views, n, reps=1, words=()):
         key = f"{n}" if reps == 1 else f"{n} x r={reps}"
         seen.setdefault(name, {}).setdefault(key, 0)
         seen[name][key] += 1
-        return launch(name, spec, views, n, reps)
+        return launch(name, spec, views, n, reps, words)
 
     _build.launch = counting
     try:
@@ -298,15 +364,15 @@ def main() -> int:
         secs = _build.build(timeout=PHASE_LIMIT_S["build"] - 20)
         print("kernel build (parallel nvcc, s): " + json.dumps(
             {k: round(v, 1) for k, v in secs.items()}), flush=True)
-        usage = {name: _build.ptxas_usage(name) for name in _build.KERNELS}
-        for name, per_n in usage.items():
+        usage = {entry: _build.ptxas_usage(entry) for entry in _build.ENTRIES}
+        for entry, per_n in usage.items():
             for n_words, u in sorted(per_n.items()):
-                print(f"  ptxas {name} K={2 * n_words}: " + json.dumps(u), flush=True)
-        spilled = {name: usage[name].get(12) for name in ("point_add", "point_double")
-                   if usage[name].get(12, {}).get("registers") is None
-                   or usage[name][12].get("stack_bytes", 0) or usage[name][12].get("spill_bytes", 0)}
+                print(f"  ptxas {entry} K={2 * n_words}: " + json.dumps(u), flush=True)
+        spilled = {entry: usage[entry].get(12) for entry in usage
+                   if usage[entry].get(12, {}).get("registers") is None
+                   or usage[entry][12].get("stack_bytes", 0) or usage[entry][12].get("spill_bytes", 0)}
         if spilled:
-            raise RuntimeError(f"B2/B3 at K = 24 use stack or spill (or no ptxas report): {spilled}")
+            raise RuntimeError(f"kernels at K = 24 use stack or spill (or no ptxas report): {spilled}")
     with phase("parity"):
         stats = parity_and_timing(dev)
         bad = {k: v["mismatches"] for k, v in stats.items() if v["mismatches"] or v["max_abs_err"]}
@@ -330,6 +396,11 @@ def main() -> int:
         idle = [k for k, v in launches.items() if v == 0]
         if idle:
             raise RuntimeError(f"kernels not launched on the main path: {idle}")
+        if launches["mont_mul"] != B1_LAUNCHES_PER_BENCH:
+            raise RuntimeError(f"B1 launched {launches['mont_mul']} times over bench_msm, expected "
+                               f"{B1_LAUNCHES_PER_BENCH} (2 x (1 chain + 4 products) + 2 from_mont)")
+        print(f"B1 launches over bench_msm: {launches['mont_mul']} (2 to_affine x (1 chain + "
+              "4 products) + 2 from_mont)", flush=True)
         per_msm = launches_by_batch(dev)
         print("launches per 2^20 MSM by batch: " + json.dumps(per_msm), flush=True)
         # c = 8, W = 32: one r = 8 launch per Horner window, 7 for 255*T.
@@ -342,7 +413,7 @@ def main() -> int:
     for name, source, replaces, _ in KERNELS:
         s = stats[name]
         first = s["timings"][0]
-        u = usage[name].get(12, {})
+        u = usage[first.get("entry", name)].get(12, {})
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": s["max_abs_err"],
@@ -352,6 +423,9 @@ def main() -> int:
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"], "library_ms": None,
             "registers": u.get("registers"), "stack_bytes": u.get("stack_bytes"),
             "spill_bytes": u.get("spill_bytes"), "timings": s["timings"][1:],
+            "ptxas": {f"{e} K={2 * n_words}": usage[e][n_words]
+                      for e, src in _build.ENTRIES.items() if src == name
+                      for n_words in sorted(usage[e])},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,4 +1,5 @@
-"""The port's kernels B1 (mont_mul), B2 (point_add), B3 (point_double).
+"""The port's kernels B1 (mont_mul, and its static-exponent chain), B2
+(point_add), B3 (point_double).
 
 The tests marked `cuda` need the card: each kernel against its plain
 PyTorch version on the same inputs on the card, bit for bit (tolerance 0:
@@ -106,6 +107,16 @@ def test_ptxas_report_is_parsed_per_instantiation():
     }
 
 
+def test_ptxas_report_of_one_entry_of_a_library():
+    """mont_mul.cu holds two entries: each is read under its own name."""
+    log = PTXAS_LOG.replace("116point_add_kernelILi8", "115mont_pow_kernelILi8")
+    assert _build.parse_ptxas(log, "mont_pow_kernel") == {
+        8: {"stack_bytes": 0, "spill_bytes": 0, "registers": 96}}
+    assert _build.parse_ptxas(log, "point_add_kernel") == {
+        12: {"stack_bytes": 16, "spill_bytes": 40, "registers": 128}}
+    assert _build.ENTRIES["mont_pow"] == "mont_mul"
+
+
 def test_plain_wrappers_never_launch_on_cpu():
     spec = L.field_spec(params.Q)
     ops = FqOps(spec)
@@ -132,6 +143,35 @@ def test_mont_mul_kernel_matches_plain(card, p):
         got = L.mont_mul(a, b, spec)
         assert L._mont_mul_fused.launches == before + 1
         assert torch.equal(got, L.mont_mul_plain(a, b, spec)), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [params.Q, params.R, SECP256K1_P], ids=["fq", "fr", "secp256k1"])
+def test_mont_pow_chain_kernel_matches_plain_chain(card, p):
+    """B1's chain entry against the plain chain of products: p - 2, a short
+    exponent and one of 402 bits (two launches), zero rows included; one
+    launch per 384 exponent bits."""
+    spec = L.field_spec(p)
+    rng = np.random.default_rng(13)
+    long_exp = (1,) + tuple(int(b) for b in rng.integers(0, 2, 401))
+    for n in BATCHES:
+        a = S.chain_inputs(rng, n, spec, card)
+        for bits in (spec.p_minus_2_bits, (1, 0, 1), long_exp):
+            before = L._mont_mul_fused.launches
+            got = L.mont_pow_static(a, bits, spec)
+            assert L._mont_mul_fused.launches == before + len(L.exp_chunks(bits))
+            assert torch.equal(got, L.mont_pow_static_plain(a, bits, spec)), (n, len(bits))
+
+
+@pytest.mark.cuda
+def test_inverse_is_one_chain_launch_and_the_plain_one_none(card):
+    spec = L.field_spec(params.Q)
+    a = S.chain_inputs(np.random.default_rng(14), 257, spec, card)
+    before = L._mont_mul_fused.launches
+    want = FqOps(spec, plain=True).inv(a)
+    assert L._mont_mul_fused.launches == before
+    assert torch.equal(FqOps(spec).inv(a), want)
+    assert L._mont_mul_fused.launches == before + 1
 
 
 @pytest.mark.cuda

@@ -121,6 +121,82 @@ def test_mont_inv_round_trip_host_oracle():
     assert inv == [pow(x, -1, params.Q) for x in xs]
 
 
+def test_mont_pow_static_plain_matches_jax_short_exponent():
+    """One short exponent on Fq (one JAX compile): the plain chain against
+    the JAX package's lax.scan chain, zero and p - 1 rows included."""
+    p = params.Q
+    jspec, tspec = JL.field_spec(p), TL.field_spec(p)
+    a, _ = _rows(p, seed=13)
+    a = a[:8]
+    bits = (1, 0, 1, 1)
+    want = np.asarray(JL.mont_pow_static(jnp.asarray(a), bits, jspec))
+    got = TL.mont_pow_static_plain(convert.limbs_from_jax(a, "cpu"), bits, tspec)
+    np.testing.assert_array_equal(convert.limbs_to_jax(got), want)
+
+
+@pytest.mark.parametrize("name", ["bls12_381_fq", "bls12_381_fr"])
+def test_mont_inv_plain_is_python_pow_in_montgomery_form(name):
+    """a^(p-2) through the plain chain against Python's pow, as Montgomery
+    limbs: x R -> x^(p-2) R mod p, zero -> zero."""
+    p = MODULI[name]
+    spec = TL.field_spec(p)
+    rng = np.random.default_rng(14)
+    xs = [0, 1, p - 1] + [int.from_bytes(rng.bytes(2 * spec.K), "little") % p for _ in range(5)]
+    r = 1 << (16 * spec.K)
+    xm = torch.from_numpy(ints_to_array([x * r % p for x in xs], spec.K).astype(np.int32))
+    want = ints_to_array([pow(x, p - 2, p) * r % p for x in xs], spec.K)
+    for fn in (TL.mont_inv_plain, lambda a, s: TL.mont_pow_static_plain(a, s.p_minus_2_bits, s)):
+        np.testing.assert_array_equal(convert.limbs_to_jax(fn(xm, spec)), want)
+
+
+def test_explicit_mul_runs_one_product_per_bit_and_set_bit():
+    """mont_pow_static with an explicit multiply runs exactly that chain:
+    one square per bit and one product per set bit, no launch."""
+    spec = TL.field_spec(params.Q)
+    a, _ = _rows(params.Q, seed=15)
+    x = convert.limbs_from_jax(a[:4], "cpu")
+    bits = (1, 0, 0, 1, 1, 0, 1)
+    calls = []
+
+    def mul(u, v):
+        calls.append(1)
+        return TL.mont_mul_plain(u, v, spec)
+
+    got = TL.mont_pow_static(x, bits, spec, mul=mul)
+    assert len(calls) == len(bits) + sum(bits)
+    assert torch.equal(got, TL.mont_pow_static_plain(x, bits, spec))
+
+
+def _chunks_value(chunks) -> tuple[int, int]:
+    """(exponent, bit count) that a run of chain launches computes."""
+    e = n = 0
+    for words, nbits in chunks:
+        assert len(words) == TL.EXP_CHUNK_BITS // 32 and 1 <= nbits <= TL.EXP_CHUNK_BITS
+        chunk = sum(w << (32 * (len(words) - 1 - i)) for i, w in enumerate(words))
+        assert chunk % (1 << (TL.EXP_CHUNK_BITS - nbits)) == 0   # zeros after the last bit
+        e = (e << nbits) | (chunk >> (TL.EXP_CHUNK_BITS - nbits))
+        n += nbits
+    return e, n
+
+
+@pytest.mark.parametrize("nbits", [1, 3, 255, 381, 384, 385, 769, 800])
+def test_exp_chunks_split_an_exponent_into_launches_of_384_bits(nbits):
+    rng = np.random.default_rng(nbits)
+    bits = tuple(int(b) for b in rng.integers(0, 2, nbits))
+    chunks = TL.exp_chunks(bits)
+    assert len(chunks) == -(-nbits // TL.EXP_CHUNK_BITS)
+    assert [n for _, n in chunks[:-1]] == [TL.EXP_CHUNK_BITS] * (len(chunks) - 1)
+    assert _chunks_value(chunks) == (int("".join(map(str, bits)), 2), nbits)
+
+
+def test_fermat_exponents_are_one_launch_and_no_exponent_none():
+    for name in ("bls12_381_fq", "bls12_381_fr", "secp256k1_p"):
+        p = MODULI[name]
+        chunks = TL.exp_chunks(TL.field_spec(p).p_minus_2_bits)
+        assert len(chunks) == 1 and _chunks_value(chunks) == (p - 2, p.bit_length())
+    assert TL.exp_chunks(()) == ()
+
+
 def test_cuda_entry_points_raise_without_a_card():
     """Entry points default to the card and never fall back silently."""
     if torch.cuda.is_available():

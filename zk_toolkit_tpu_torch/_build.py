@@ -17,6 +17,11 @@ Every library exports one launcher with the same signature,
 where `args` holds the views' base pointers, then their row strides, and
 `reps` is B3's doubling count (1 for the others). It launches on the given
 stream and returns cudaGetLastError(); `launch()` raises if it is not 0.
+B1's library (`mont_mul.cu`) exports a second entry with that signature,
+`zkt_mont_pow`, the static-exponent chain: there `reps` is the chunk's bit
+count (1 to 384) and `args` goes on after the strides with the 12 exponent
+words (`launch(..., words=...)`), which the launcher passes to the kernel
+by value. `ENTRIES` maps each entry to the source that holds it.
 The loaded function and each field's modulus words are cached, so a
 launch costs the view checks, one argument array and the ctypes call.
 """
@@ -35,7 +40,11 @@ import time
 
 import torch
 
-KERNELS = ("mont_mul", "point_add", "point_double")
+# Every launcher entry (zkt_<entry>) and the source csrc/<source>.cu that
+# holds it; each source builds into one library.
+ENTRIES = {"mont_mul": "mont_mul", "mont_pow": "mont_mul",
+           "point_add": "point_add", "point_double": "point_double"}
+KERNELS = tuple(dict.fromkeys(ENTRIES.values()))
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -120,26 +129,30 @@ def build(names=KERNELS, timeout: float = 600.0) -> dict[str, float]:
     return secs
 
 
-def ptxas_usage(name: str) -> dict[int, dict]:
-    """Per instantiation of kernel `name` in its last build, keyed by the
-    words per element N (K = 2N limbs), what ptxas reported: registers,
-    stack frame and spill bytes. {} when there is no build log."""
-    path = lib_path(name)[:-3] + ".log"
+def ptxas_usage(entry: str) -> dict[int, dict]:
+    """Per instantiation of the kernel of launcher entry `entry` (ENTRIES)
+    in its last build, keyed by the words per element N (K = 2N limbs),
+    what ptxas reported: registers, stack frame and spill bytes. {} when
+    there is no build log."""
+    path = lib_path(ENTRIES[entry])[:-3] + ".log"
     if not os.path.exists(path):
         return {}
     with open(path) as fh:
-        return parse_ptxas(fh.read())
+        return parse_ptxas(fh.read(), f"{entry}_kernel")
 
 
-def parse_ptxas(log: str) -> dict[int, dict]:
+def parse_ptxas(log: str, kernel: str | None = None) -> dict[int, dict]:
     """Parses `-Xptxas -v` output; an entry's N is the template argument of
-    its mangled name (`ILi12E` for N = 12)."""
+    its mangled name (`ILi12E` for N = 12). With `kernel`, only the
+    functions of that name (`mont_pow_kernel`) count."""
     usage: dict[int, dict] = {}
     cur = None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
         if m:
             n = re.search(r"ILi(\d+)E", m.group(1))
+            if kernel is not None and f"{kernel}ILi" not in m.group(1):
+                n = None
             cur = usage.setdefault(int(n.group(1)), {}) if n else None
             continue
         if cur is None:
@@ -155,15 +168,16 @@ def parse_ptxas(log: str) -> dict[int, dict]:
 
 
 def _kernel(name: str) -> tuple:
-    """(launcher, error-string function) of kernel `name`, built and loaded
-    at first use."""
+    """(launcher, error-string function) of launcher entry `name`, its
+    library built and loaded at first use."""
     fns = _fns.get(name)
     if fns is not None:
         return fns
     with _lock:
         if name not in _fns:
-            build((name,))
-            lib = ctypes.CDLL(lib_path(name))
+            src = ENTRIES[name]
+            build((src,))
+            lib = ctypes.CDLL(lib_path(src))
             fn = getattr(lib, f"zkt_{name}")
             fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
                            ctypes.c_void_p, ctypes.c_uint, ctypes.c_int,
@@ -207,24 +221,26 @@ def check_view(t: torch.Tensor, k: int) -> tuple[int, int]:
     return ptr, s0
 
 
-_arg_arrays: dict[int, type] = {}   # views -> ctypes array type of 2 * views
+_arg_arrays: dict[int, type] = {}   # args -> ctypes array type of that length
 
 
-def launch(name: str, spec, views, n: int, reps: int = 1) -> None:
-    """Launches kernel `name` over `n` rows of the int32 [rows, K] CUDA
+def launch(name: str, spec, views, n: int, reps: int = 1, words: tuple = ()) -> None:
+    """Launches entry `name` over `n` rows of the int32 [rows, K] CUDA
     `views` (inputs first, then outputs) for the field of `spec`, on the
-    current stream; `reps` is B3's doubling count."""
+    current stream; `reps` is B3's doubling count or the chain's bit count,
+    `words` the chain's exponent words."""
     fn, error_string = _kernel(name)
     k = spec.K
     if k not in (16, 24):
         raise ValueError(f"kernels are built for K = 16 and 24 limbs, not {k}")
-    m = len(views)
     ptrs, strides = zip(*[check_view(v, k) for v in views])
+    m = 2 * len(views) + len(words)
     arr = _arg_arrays.get(m)
     if arr is None:
-        arr = _arg_arrays[m] = ctypes.c_longlong * (2 * m)
+        arr = _arg_arrays[m] = ctypes.c_longlong * m
     p_words, n0 = _modulus(spec)
-    rc = fn(k // 2, arr(*ptrs, *strides), n, p_words, n0, reps, _stream(views[0].device))
+    rc = fn(k // 2, arr(*ptrs, *strides, *words), n, p_words, n0, reps,
+            _stream(views[0].device))
     if rc != 0:
         raise RuntimeError(f"kernel {name} launch failed: CUDA error {rc} "
                            f"({error_string(rc).decode()})")

@@ -1,18 +1,21 @@
-"""Builds variants of kernels B2 and B3 from edited copies of csrc/ and
+"""Builds variants of kernels B1, B2 and B3 from edited copies of csrc/ and
 compares them on one card: ptxas registers, stack and spills at K = 24,
 the instruction mix of B2's K = 24 SASS, parity against the plain versions
-(tolerance 0, every case class, 2^16 rows) and device ms per launch at the
-main path's shapes. Prints one JSON line per variant, then the card's name
-and power limit.
+(tolerance 0: B2 and B3 on every case class at 2^16 rows, B1's product at
+2^20 rows and its chain at 8192) and device ms per launch at the main
+path's shapes (B1: the inverse at 8192 and 1, the product at 8192) and at
+B1's large batch (the product at 2^20 rows, K = 16 and 24). Prints one JSON line per variant,
+then the card's name and power limit.
 
     python3 -m zk_toolkit_tpu_torch.kernel_variants [VARIANT ...]
 
 The variants are the design choices of csrc/field.cuh and point_add.cu:
 `shipped` (the sources as they are), `4_blocks` (B2 at 4 blocks of 128
-threads per SM, 128 registers), `sq_as_mul` (every square a product) and
+threads per SM, 128 registers), `sq_as_mul` (every square a product),
 `cios_mul` (the 12-word product as CIOS, whose accumulator shifts a word a
-round, instead of the pair-aligned one). Builds go under the repository's
-build/ directory.
+round, instead of the pair-aligned one), `b1_block_128` (B1 at 128 threads
+a block whatever the batch) and `b1_block_256` (B1 at 256 threads a block).
+Builds go under the repository's build/ directory.
 """
 
 from __future__ import annotations
@@ -44,8 +47,11 @@ VARIANTS = {
     "sq_as_mul": [("field.cuh", "  mont_sq_aligned<N>(r, a, M);\n}",
                    "  mont_mul<N>(r, a, a, M);\n}")],
     "cios_mul": [("field.cuh", "if constexpr (N == 12)", "if constexpr (false)")],
+    "b1_block_128": [("mont_mul.cu", "while (t > 32 &&", "while (false &&")],
+    "b1_block_256": [("mont_mul.cu", "kMaxThreads = 128", "kMaxThreads = 256"),
+                     ("mont_mul.cu", "while (t > 32 &&", "while (false &&")],
 }
-KERNELS = ("point_add", "point_double")
+KERNELS = ("mont_mul", "point_add", "point_double")
 VAR_DIR = os.path.join(os.path.dirname(_build.BUILD_DIR), "kernel_variants")
 
 
@@ -106,14 +112,20 @@ def main(argv) -> int:
     ev, od = S.upsweep_views(pg, qg, 64)
     p32 = tuple(c[:32].contiguous() for c in pg)
     p1 = tuple(c[:1].contiguous() for c in pg)
+    fr = L.field_spec(params.R)
+    big = {s.K: (S.random_field(rng, 1 << 20, s, dev), S.random_field(rng, 1 << 20, s, dev))
+           for s in (fr, fq)}
+    want_big = {k: L.mont_mul_plain(a, b, fq if k == 24 else fr) for k, (a, b) in big.items()}
+    inv_in = {n: S.chain_inputs(rng, n, fq, dev) for n in (8192, 1)}
+    want_inv = L.mont_inv_plain(inv_in[8192], fq)
     lib_path = _build.lib_path
     try:
         for name in names:
             d = os.path.join(VAR_DIR, name)
             out = {"variant": name}
-            for kern in KERNELS:
+            for entry, kern in _build.ENTRIES.items():
                 with open(os.path.join(d, f"{kern}.log")) as fh:
-                    out[f"{kern}_ptxas_k24"] = _build.parse_ptxas(fh.read()).get(12)
+                    out[f"{entry}_ptxas_k24"] = _build.parse_ptxas(fh.read(), f"{entry}_kernel").get(12)
             out["point_add_sass_k24"] = _sass_mix(os.path.join(d, "point_add.so"))
             _build._fns.clear()
             _build.lib_path = lambda n, d=d: os.path.join(d, f"{n}.so")
@@ -125,6 +137,18 @@ def main(argv) -> int:
             out["b2_upsweep_4194304_device_ms"] = device_ms(lambda: CK.point_add_fused(ev, od, fq), 5)[0]
             out["b3_32_device_ms"] = device_ms(lambda: CK.point_double_fused(p32, fq), 100)[0]
             out["b3_1_r8_device_ms"] = device_ms(lambda: CK.point_double_n_fused(p1, fq, 8), 50)[0]
+            got = L.mont_inv(inv_in[8192], fq)
+            out["b1_inv_8192_mismatching_rows"] = int((got != want_inv).any(-1).sum())
+            for n, x in inv_in.items():
+                out[f"b1_inv_{n}_device_ms"] = device_ms(lambda: L.mont_inv(x, fq), 20)[0]
+            x = inv_in[8192]
+            out["b1_mul_8192_device_ms"] = device_ms(lambda: L._mont_mul_fused(x, x, fq), 200)[0]
+            for k, (a, b) in big.items():
+                spec = fq if k == 24 else fr
+                got = L._mont_mul_fused(a, b, spec)
+                out[f"b1_mul_2p20_k{k}_mismatching_rows"] = int((got != want_big[k]).any(-1).sum())
+                out[f"b1_mul_2p20_k{k}_device_ms"] = device_ms(
+                    lambda: L._mont_mul_fused(a, b, spec), 50)[0]
             print(json.dumps(out), flush=True)
     finally:
         _build.lib_path = lib_path

@@ -19,8 +19,8 @@ from zk_toolkit_tpu_torch.ops import limbs as L
 class FqOps:
     """Base-prime-field ops bound to a FieldSpec.
 
-    plain=False (the default) multiplies with kernel B1 on CUDA tensors and
-    lets ops/curve_ops.py run kernels B2/B3; plain=True runs the plain
+    plain=False (the default) multiplies and inverts with kernel B1 on CUDA
+    tensors and lets ops/curve_ops.py run kernels B2/B3; plain=True runs the plain
     PyTorch version of every operation on any device — the reference the
     kernels are held against on the card."""
 
@@ -47,7 +47,8 @@ class FqOps:
         return L.add_mod(a, a, self.spec)
 
     def inv(self, a):
-        return L.mont_inv(a, self.spec, self.mul)
+        inv = L.mont_inv_plain if self.plain else L.mont_inv
+        return inv(a, self.spec)
 
     def is_zero(self, a):
         """bool[...batch] — true where the element is 0."""

@@ -7,14 +7,16 @@ as [..., K]; K = 24 for BLS12-381 Fq, 16 for Fr and secp256k1. The port
 stores limbs as torch.int32 (values < 2^16, so the sign bit is never set);
 torch.uint32 has no CPU add or shift.
 
-Two implementations of every Montgomery product:
+Two implementations of every Montgomery product and static-exponent chain:
 
 - kernel B1 (csrc/mont_mul.cu), which `mont_mul` launches for every CUDA
-  tensor, at every batch size;
-- the plain PyTorch version (`mont_mul_plain`), in int64, which `mont_mul`
-  runs for CPU tensors only, and which the tests and chip_smoke.py hold the
-  kernel against. A limb product reaches 2^32 - 2^17 + 1, so the plain
-  version never computes in int32.
+  tensor, at every batch size, and whose chain entry `mont_pow_static` and
+  `mont_inv` launch once per 384 exponent bits;
+- the plain PyTorch versions (`mont_mul_plain`, `mont_pow_static_plain`,
+  `mont_inv_plain`), in int64, which the wrappers run for CPU tensors only,
+  and which the tests and chip_smoke.py hold the kernel against. A limb
+  product reaches 2^32 - 2^17 + 1, so the plain version never computes in
+  int32.
 
 The plain versions compute the same integer functions as the JAX package
 on every input whose limbs are < 2^16, canonical or not:
@@ -274,15 +276,54 @@ def from_mont(a: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
     return mont_mul(a, const_limbs(1, spec.K, _dev(a)), spec)
 
 
-def mont_pow_static(a: torch.Tensor, exp_bits: tuple, spec: FieldSpec,
-                    mul=None) -> torch.Tensor:
+EXP_CHUNK_BITS = 384   # exponent bits one chain launch takes (csrc/mont_mul.cu)
+
+
+@functools.lru_cache(maxsize=None)
+def exp_chunks(exp_bits: tuple) -> tuple:
+    """The chain kernel's launches for a static exponent given MSB-first:
+    per launch of at most EXP_CHUNK_BITS bits, (words, bit count), with the
+    chunk's bits packed MSB-first into EXP_CHUNK_BITS / 32 words (bit 31 of
+    the first word is the chunk's first bit, zeros after its last). Each
+    launch after the first continues from the previous accumulator."""
+    out = []
+    for lo in range(0, len(exp_bits), EXP_CHUNK_BITS):
+        chunk = exp_bits[lo:lo + EXP_CHUNK_BITS]
+        words = [0] * (EXP_CHUNK_BITS // 32)
+        for j, bit in enumerate(chunk):
+            if bit:
+                words[j // 32] |= 1 << (31 - j % 32)
+        out.append((tuple(words), len(chunk)))
+    return tuple(out)
+
+
+def _mont_pow_fused(a: torch.Tensor, exp_bits: tuple, spec: FieldSpec) -> torch.Tensor:
+    """Kernel B1's chain entry (zkt_mont_pow) on a CUDA tensor: a^e in
+    Montgomery form, one launch per EXP_CHUNK_BITS bits of e, each counted
+    in _mont_mul_fused.launches. Raises on anything the kernel does not
+    take; never falls back."""
+    from zk_toolkit_tpu_torch import _build
+    from zk_toolkit_tpu_torch.ops.curve_kernels import as_rows
+
+    af = as_rows(a, spec.K)
+    acc = const_limbs(spec.r_mod_p, spec.K, _dev(a)).expand(af.shape)
+    for words, nbits in exp_chunks(tuple(exp_bits)):
+        out = torch.empty(af.shape, dtype=torch.int32, device=af.device)
+        _build.launch("mont_pow", spec, (af, acc, out), out.shape[0], nbits, words)
+        _mont_mul_fused.launches += 1
+        acc = out
+    return acc.reshape(a.shape)
+
+
+def mont_pow_static_plain(a: torch.Tensor, exp_bits: tuple, spec: FieldSpec,
+                          mul=None) -> torch.Tensor:
     """a^e in Montgomery form, e a static integer given MSB-first as
-    exp_bits: one squaring per bit and one multiply per set bit (the JAX
-    package's lax.scan computes the multiply for every bit and selects; the
-    values are the same). `mul(x, y)` is the Montgomery product to use,
-    mont_mul by default (FqOps passes its own)."""
+    exp_bits, from R mod p: one squaring per bit and one multiply per set
+    bit (the JAX package's lax.scan computes the multiply for every bit and
+    selects; the values are the same). `mul(x, y)` is the product,
+    mont_mul_plain by default."""
     if mul is None:
-        mul = functools.partial(mont_mul, spec=spec)
+        mul = functools.partial(mont_mul_plain, spec=spec)
     acc = const_limbs(spec.r_mod_p, spec.K, _dev(a)).expand(a.shape)
     for bit in exp_bits:
         acc = mul(acc, acc)
@@ -291,10 +332,26 @@ def mont_pow_static(a: torch.Tensor, exp_bits: tuple, spec: FieldSpec,
     return acc
 
 
+def mont_pow_static(a: torch.Tensor, exp_bits: tuple, spec: FieldSpec,
+                    mul=None) -> torch.Tensor:
+    """a^e in Montgomery form (mont_pow_static_plain's function): with an
+    explicit `mul`, its chain of products; else the chain kernel on a CUDA
+    tensor (one launch per 384 bits of e), the plain version on the CPU.
+    Input contract on CUDA, as for the product: a < p."""
+    if mul is None and a.is_cuda:
+        return _mont_pow_fused(a, exp_bits, spec)
+    return mont_pow_static_plain(a, exp_bits, spec, mul)
+
+
 def mont_inv(a: torch.Tensor, spec: FieldSpec, mul=None) -> torch.Tensor:
     """Batched modular inverse via Fermat: a^(p-2). Maps Montgomery form to
     Montgomery form. Inverse of zero returns zero (callers guard)."""
     return mont_pow_static(a, spec.p_minus_2_bits, spec, mul)
+
+
+def mont_inv_plain(a: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
+    """mont_inv through plain products only (any device)."""
+    return mont_pow_static_plain(a, spec.p_minus_2_bits, spec)
 
 
 # -- host conversion helpers ----------------------------------------------------

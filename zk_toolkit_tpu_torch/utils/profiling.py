@@ -72,12 +72,16 @@ def device_ms(fn, reps: int):
     """(device ms per call, host us per call) of fn(). The calls queue behind
     a spin on the card, so the events bracket the card's work alone and the
     host clock the enqueue alone; raises if the host took longer to enqueue
-    them than the spin lasted."""
+    them than the spin lasted. The spin is SLEEP_CYCLES, or up to 20 times
+    longer where a first call's host time says the enqueue of `reps` calls
+    may need it (a call of many launches)."""
+    t0 = time.perf_counter()
     fn()
+    first_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     ev[0].record()
-    torch.cuda._sleep(SLEEP_CYCLES)
+    torch.cuda._sleep(min(20 * SLEEP_CYCLES, max(SLEEP_CYCLES, int(4 * reps * first_s * 2e9))))
     ev[1].record()
     t0 = time.perf_counter()
     for _ in range(reps):

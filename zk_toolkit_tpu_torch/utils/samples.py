@@ -1,6 +1,7 @@
 """Sample inputs for holding the kernels against their plain versions:
 random canonical field elements, the adversarial corner residues of the JAX
-package's parity tests, G1 point pairs in every case class of the complete
+package's parity tests (alone, and spread over random rows for the
+static-exponent chain), G1 point pairs in every case class of the complete
 addition, and pairs laid out as an up-sweep level. Used by chip_smoke.py,
 kernel_variants.py and tests/test_torch_kernels.py."""
 
@@ -38,6 +39,17 @@ def corner_pairs(rng, n: int, spec, dev):
         ta = torch.cat([ta, random_field(rng, m, spec, dev)])
         tb = torch.cat([tb, random_field(rng, m, spec, dev)])
     return ta[:n], tb[:n]
+
+
+def chain_inputs(rng, n: int, spec, dev) -> torch.Tensor:
+    """n canonical elements for a static-exponent chain: random rows, with
+    every fourth row from the second on on a corner residue (0 first, then
+    1, 2, p - 1, ...)."""
+    a = random_field(rng, n, spec, dev)
+    corners = corner_pairs(rng, 10, spec, dev)[1]      # the 10 corner residues
+    idx = torch.arange(1, n, 4, device=dev)
+    a[idx] = corners[((idx - 1) // 4) % 10]
+    return a
 
 
 def point_pairs(rng, n: int, dev, generic_only: bool = False):
