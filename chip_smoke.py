@@ -1,13 +1,21 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (zk_toolkit_tpu_torch) on one NVIDIA
 GPU: builds the kernels from csrc/, holds each against its plain PyTorch
-version on the card (B1's static-exponent chain too), drives the 2^20-point
+version on the card (B1's static-exponent chain, and B1 at the NTT, SpMV
+and Fq2 shapes of the Groth16 prove, too), drives the 2^20-point
 BLS12-381 G1 MSM through the port's bench entry point with the known-dlog
-check, and prints:
+check (phase `slice`), then the Groth16 prove at 2^16 constraints through
+bench_groth16 (phase `groth16`: every proof equal to the trapdoor's
+multiples of the generators, host_oracle_verify accepting it and rejecting
+a tampered statement, B1, B2 and B3 each launched inside one prove), and
+prints:
 
   phase lines, each with its seconds;
+  the prove's seconds, stage split, launches by kernel and batch, peak
+    memory and the NTT's B1 / add-sub split;
   a `kernels` JSON line: per kernel its route, source, the TPU kernel it
-    replaces, launches during the MSM run, the largest limb difference from
+    replaces, launches over the MSM run and the prove run together (and by
+    path in `launches_by_path`), the largest limb difference from
     its plain version (tolerance 0: integer arithmetic), its registers and
     spills at K = 24 (ptxas, every entry of its library), and at a shape
     the main path gives it its time per call (`ms`), its device time per
@@ -15,7 +23,11 @@ check, and prints:
     adds further shapes: for B1 the inverse as one product launch per step
     (the path before the chain entry), the product at 8192 rows, the
     inverse of one element and the product at 2^20 rows of Fr and Fq; for B2 an
-    up-sweep level of 2^22 pairs; for B3 one point at r = 8;
+    up-sweep level of 2^22 pairs; for B3 one point at r = 8; and the
+    prove's batches: B1 at a [2^15]-product NTT stage (twiddle row
+    broadcast) and the [2^16, 2] SpMV product, B2 at a 2^21-pair up-sweep
+    level (the 2^17-point MSMs) and on 1 and 3 points (scalar_mul), B3 on 1
+    and 3 points at r = 1 (scalar_mul);
   the card's name and power limit as nvidia-smi prints them;
   last, {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -53,15 +65,27 @@ DOUBLINGS = (1, 2, 8)
 # B1's chain against the plain chain of products: odd sizes around the
 # grid, the 32 points of a fold and the 8192 table entries of to_affine.
 CHAIN_BATCHES = (1, 32, 255, 257, 8192)
-# The product at the NTT and SpMV batches of the Groth16 prove.
+# The product at 2^20 rows of Fr and Fq.
 LARGE_BATCH = 1 << 20
+# The Groth16 prove of phase groth16: 2^16 constraints (bench.py's size),
+# its NTT domain, its SpMV nnz width (synthetic gates have at most 2 terms a
+# side), the stages its parity rows take and the first up-sweep level of
+# its 2^17-point G1 MSMs (32 windows x 2^16 pairs).
+GROTH16_LOG2_N = 16
+NTT_N = 1 << GROTH16_LOG2_N
+SPMV_KMAX = 2
+NTT_STAGES = (1, 8, 16)
+UPSWEEP_PAIRS_G16 = 1 << 21
+# Fq2 parity batches: one element, odd sizes, the 8192 entries of the G2
+# table's to_affine.
+FQ2_BATCHES = (1, 257, 8192)
 # B1 launches over one bench_msm(2^20) run: two to_affine (the fixed-base
 # table, then the MSM result), each one chain launch for the inverse and 4
 # products, then 2 from_mont of the result's coordinates.
 B1_LAUNCHES_PER_BENCH = 2 * (1 + 4) + 2
 # The first up-sweep level of the 2^20 MSM: even/odd rows of [2^23, 3K].
 UPSWEEP_PAIRS = 1 << 22
-PHASE_LIMIT_S = {"build": 400, "parity": 300, "slice": 420}
+PHASE_LIMIT_S = {"build": 200, "parity": 250, "slice": 150, "groth16": 550}
 
 
 class PhaseTimeout(Exception):
@@ -168,6 +192,7 @@ def parity_and_timing(dev) -> dict:
     from zk_toolkit_tpu_torch.ops import curve_ops as C
     from zk_toolkit_tpu_torch.ops import limbs as L
     from zk_toolkit_tpu_torch.ops.field_ops import FqOps
+    from zk_toolkit_tpu_torch.ops.tower_ops import Fq2Ops
     from zk_toolkit_tpu_torch.utils import samples as S
 
     rng = np.random.default_rng(2024)
@@ -253,6 +278,52 @@ def parity_and_timing(dev) -> dict:
             what="product, contiguous [2^20, K]"))
         del a, b
 
+    # The prove's B1 shapes at K = 16: NTT stages (the twiddle row
+    # broadcast over the blocks, the operand a strided half of each block)
+    # and the SpMV product of [2^16, kmax] coefficients and gathered wires.
+    fr = L.field_spec(params.R)
+    kr = fr.K
+    x = S.random_field(rng, NTT_N, fr, dev)
+    for s in NTT_STAGES:
+        half, m = 1 << (s - 1), 1 << s
+        u = x.reshape(NTT_N // m, m, kr)[:, half:]
+        tw = S.random_field(rng, half, fr, dev)[None]
+        record("mont_mul", (L._mont_mul_fused(u, tw, fr),), (L.mont_mul_plain(u, tw, fr),))
+        if s == NTT_STAGES[1]:
+            res["mont_mul"]["timings"].append(timed(
+                lambda: L._mont_mul_fused(u, tw, fr), lambda: L.mont_mul_plain(u, tw, fr), 200, 5,
+                (2 * NTT_N // 2 + half) * 4 * kr, NTT_N // 2 * imad(kr, 1, 0), batch=NTT_N // 2,
+                K=kr, entry="mont_mul", what=f"NTT stage {s} of 2^16: [{NTT_N // m}, {half}, 16] "
+                f"x twiddle row [1, {half}, 16]"))
+    val = S.random_field(rng, NTT_N * SPMV_KMAX, fr, dev).view(NTT_N, SPMV_KMAX, kr)
+    gat = S.random_field(rng, NTT_N * SPMV_KMAX, fr, dev).view(NTT_N, SPMV_KMAX, kr)
+    record("mont_mul", (L._mont_mul_fused(val, gat, fr),), (L.mont_mul_plain(val, gat, fr),))
+    res["mont_mul"]["timings"].append(timed(
+        lambda: L._mont_mul_fused(val, gat, fr), lambda: L.mont_mul_plain(val, gat, fr), 200, 5,
+        3 * NTT_N * SPMV_KMAX * 4 * kr, NTT_N * SPMV_KMAX * imad(kr, 1, 0),
+        batch=NTT_N * SPMV_KMAX, K=kr, entry="mont_mul",
+        what=f"SpMV product [2^16, {SPMV_KMAX}, 16]"))
+    del x, val, gat
+
+    # Fq2 on the card (B1 and its chain) against Fq2Ops over the plain
+    # FqOps, on random rows with zero, one and u among them.
+    before = res["mont_mul"]["mismatches"]
+    e2, e2p = Fq2Ops(FqOps(fq)), Fq2Ops(plain)
+    for n in FQ2_BATCHES:
+        a = S.random_field(rng, 2 * n, fq, dev).view(n, 2, k)
+        b = S.random_field(rng, 2 * n, fq, dev).view(n, 2, k)
+        a[0] = 0
+        if n > 2:
+            a[1] = e2.one_like(a[1])
+            a[2, 0], a[2, 1] = 0, a[1, 0]
+        for got, want in ((e2.mul(a, b), e2p.mul(a, b)), (e2.sq(a), e2p.sq(a)),
+                          (e2.inv(a), e2p.inv(a))):
+            record("mont_mul", (got,), (want,))
+    torch.cuda.synchronize()
+    print(f"parity of B1 at the prove's shapes (NTT stages {list(NTT_STAGES)} of 2^16, SpMV "
+          f"[2^16, {SPMV_KMAX}], Fq2 mul/sq/inv at {list(FQ2_BATCHES)}): "
+          f"{res['mont_mul']['mismatches'] - before} mismatching rows", flush=True)
+
     n = TIMING_BATCH["point_add"]                  # generic pairs, as in the stream
     pp, qq = S.point_pairs(rng, n, dev, generic_only=True)
     want = C._point_add_formula(plain, pp, qq)
@@ -274,8 +345,27 @@ def parity_and_timing(dev) -> dict:
         UPSWEEP_PAIRS * 9 * word, tiles * finite * imad(k, 12, 4),
         batch=UPSWEEP_PAIRS, layout="up-sweep even/odd views of [2^23, 3K]"))
     del ev, od
+    # The first up-sweep level of the prove's 2^17-point G1 MSMs.
+    tiles = UPSWEEP_PAIRS_G16 // n
+    ev, od = S.upsweep_views(pp, qq, tiles)
+    got = CK.point_add_fused(ev, od, fq)
+    record("point_add", tuple(g.view(tiles, n, k) for g in got),
+           tuple(w.expand(tiles, n, k) for w in want))
+    del got
+    res["point_add"]["timings"].append(timed(
+        lambda: CK.point_add_fused(ev, od, fq), None, 10, 0,
+        UPSWEEP_PAIRS_G16 * 9 * word, tiles * finite * imad(k, 12, 4),
+        batch=UPSWEEP_PAIRS_G16, layout="up-sweep even/odd views of [2^22, 3K]"))
+    del ev, od
+    # scalar_mul's batches: the three randomizers of delta, then one point.
+    for rows in (3, 1):
+        p1, q1 = tuple(c[:rows] for c in pp), tuple(c[:rows] for c in qq)
+        res["point_add"]["timings"].append(timed(
+            lambda: CK.point_add_fused(p1, q1, fq), lambda: C._point_add_formula(plain, p1, q1),
+            200, 3, rows * 9 * word, rows * imad(k, 12, 4), batch=rows, what="scalar_mul step"))
 
-    for n, r in ((TIMING_BATCH["point_double"], 1), (1, 8)):
+    # B3 at its main-path batch, the Horner step, and scalar_mul's batches.
+    for n, r in ((TIMING_BATCH["point_double"], 1), (1, 8), (3, 1), (1, 1)):
         p1 = tuple(c[:n].contiguous() for c in pp)
         record("point_double", CK.point_double_n_fused(p1, fq, r), C.point_double_n(plain, p1, r))
         res["point_double"]["timings"].append(timed(
@@ -284,10 +374,34 @@ def parity_and_timing(dev) -> dict:
     return res
 
 
+def count_launches(fn) -> dict:
+    """Kernel launches of fn(), by launcher entry and batch size, counted at
+    the launcher (B1's keys carry K: 16 for Fr, 24 for Fq)."""
+    from zk_toolkit_tpu_torch import _build
+
+    seen: dict = {}
+    launch = _build.launch
+
+    def counting(name, spec, views, n, reps=1, words=()):
+        key = f"{n}" if reps == 1 else f"{n} x r={reps}"
+        if name.startswith("mont_"):
+            key = f"K={spec.K} {key}"
+        seen.setdefault(name, {}).setdefault(key, 0)
+        seen[name][key] += 1
+        return launch(name, spec, views, n, reps, words)
+
+    _build.launch = counting
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        _build.launch = launch
+    return seen
+
+
 def launches_by_batch(dev, n: int = 1 << 20) -> dict:
     """Kernel launches of one n-point MSM (the benchmark's inputs), by
-    kernel and batch size, counted at the launcher."""
-    from zk_toolkit_tpu_torch import _build
+    kernel and batch size."""
     from zk_toolkit_tpu_torch.bench import msm_inputs
     from zk_toolkit_tpu_torch.curves.bls12_381 import params
     from zk_toolkit_tpu_torch.ops import limbs as L
@@ -297,22 +411,85 @@ def launches_by_batch(dev, n: int = 1 << 20) -> dict:
 
     _, _, base, scalars = msm_inputs(n, dev)
     pts = fixed_base_g1(base)
-    seen: dict = {}
-    launch = _build.launch
+    return count_launches(lambda: M.msm_pippenger(FqOps(L.field_spec(params.Q)), pts, scalars, 255))
 
-    def counting(name, spec, views, n, reps=1, words=()):
-        key = f"{n}" if reps == 1 else f"{n} x r={reps}"
-        seen.setdefault(name, {}).setdefault(key, 0)
-        seen[name][key] += 1
-        return launch(name, spec, views, n, reps, words)
 
-    _build.launch = counting
+def count_field_ops(fn) -> dict:
+    """During fn(): calls of the plain add_mod / sub_mod / neg_mod (the
+    only field operations that run no kernel) and of their carry pass
+    loop `_norm`, and the host syncs of every kind, as torch's sync debug
+    mode reports them (one warning per synchronising call)."""
+    import warnings
+
+    from zk_toolkit_tpu_torch.ops import limbs as L
+
+    seen = dict.fromkeys(("add_mod", "sub_mod", "neg_mod", "_norm"), 0)
+    saved = {name: getattr(L, name) for name in seen}
+
+    def counted(name, f):
+        def call(*args, **kwargs):
+            seen[name] += 1
+            return f(*args, **kwargs)
+        return call
+
+    for name, f in saved.items():
+        setattr(L, name, counted(name, f))
+    torch.cuda.synchronize()
     try:
-        M.msm_pippenger(FqOps(L.field_spec(params.Q)), pts, scalars, 255)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
     finally:
-        _build.launch = launch
+        for name, f in saved.items():
+            setattr(L, name, f)
+    seen["host_syncs"] = sum("synchroniz" in str(w.message) for w in caught)
     return seen
+
+
+def add_sub_timings(dev) -> dict:
+    """ms per call of add_mod and sub_mod (plain PyTorch on the card: a few
+    dozen small ops and a host sync per carry pass) at the shapes the prove
+    gives them: one G2 point's stacked Fq2 halves [6, 24] (the formulas of
+    scalar_mul and the Horner chain) and an NTT butterfly half [2^15, 16]."""
+    from zk_toolkit_tpu_torch.curves.bls12_381 import params
+    from zk_toolkit_tpu_torch.ops import limbs as L
+    from zk_toolkit_tpu_torch.utils import samples as S
+    from zk_toolkit_tpu_torch.utils.profiling import cuda_ms
+
+    rng = np.random.default_rng(6)
+    out = {}
+    for p, rows, label in ((params.Q, 6, "[6, 24] Fq"), (params.R, NTT_N // 2, "[2^15, 16] Fr")):
+        spec = L.field_spec(p)
+        a, b = S.random_field(rng, rows, spec, dev), S.random_field(rng, rows, spec, dev)
+        for fn in (L.add_mod, L.sub_mod):
+            out[f"{fn.__name__} {label}"] = cuda_ms(lambda: fn(a, b, spec), 100)
+    return out
+
+
+def groth16_run(dev) -> dict:
+    """bench_groth16 at 2^16 constraints (its checks raise on a wrong
+    proof), then the launches of one more prove by kernel and batch."""
+    from zk_toolkit_tpu_torch.bench import TIMED_RS, bench_groth16, groth16_setup
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    setup = groth16_setup(GROTH16_LOG2_N, dev)
+    crs_peak = torch.cuda.max_memory_allocated(dev)
+    print(f"groth16 setup: m = {setup['mat'].m}, n_pad = {setup['mat'].n_pad}, kmax = "
+          f"{setup['mat'].kmax} | R1CS + matrices {setup['setup_s']:.2f} s | CRS (table mode) "
+          f"{setup['crs_s']:.3f} s, peak {crs_peak / 2**30:.2f} GiB | prover init "
+          f"{setup['prover_init_s']:.2f} s", flush=True)
+    out = bench_groth16(device=dev, setup=setup)
+    out["crs_peak_bytes"] = crs_peak
+    prover, crs = setup["prover"], setup["crs"]
+    out["launches_per_prove"] = count_launches(lambda: prover.prove_with_rs(crs, *TIMED_RS))
+    out["field_ops_per_prove"] = count_field_ops(lambda: prover.prove_with_rs(crs, *TIMED_RS))
+    out["add_sub_ms"] = add_sub_timings(dev)
+    return out
 
 
 def small_msm_check(dev):
@@ -409,6 +586,40 @@ def main() -> int:
             raise RuntimeError(f"B3 launches per MSM {b3}, expected 32 Horner (r = 8) + 7")
         print(f"B3 launches per 2^20 MSM: {sum(b3.values())} (32 Horner at r = 8, 7 for 255*T)",
               flush=True)
+    with phase("groth16"):
+        for fn in counters().values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        g16 = groth16_run(dev)
+        torch.cuda.synchronize()
+        g16_launches = {k: fn.launches for k, fn in counters().items()}
+        per_prove = g16["launches_per_prove"]
+        split = g16["split_ms"]
+        print(f"groth16 2^16: proofs == trapdoor multiples, host_oracle_verify accepts and "
+              f"rejects a tampered statement ({g16['oracle_s']:.1f} s) | prove "
+              f"{g16['prove_s']:.4f} s (first {g16['first_prove_s']:.3f} s) | crs "
+              f"{g16['crs_s']:.3f} s | peak {g16['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+        print("groth16 stage split, ms per prove (CUDA events): "
+              + json.dumps({k: round(v, 3) for k, v in split.items()}), flush=True)
+        print(f"groth16 NTT (7 transforms of 2^16): {split['ntt']:.3f} ms, of which B1 products "
+              f"{split['ntt_b1']:.3f} ms and add_mod/sub_mod {split['ntt_addsub']:.3f} ms",
+              flush=True)
+        print("groth16 launches per prove by batch: " + json.dumps(per_prove), flush=True)
+        print("groth16 per prove: plain add/sub/neg calls, their _norm calls and host syncs "
+              "(sync debug mode): " + json.dumps(g16["field_ops_per_prove"])
+              + " | ms per add/sub call: " + json.dumps(
+                  {k: round(v, 4) for k, v in g16["add_sub_ms"].items()}), flush=True)
+        print("groth16 result: " + json.dumps(g16), flush=True)
+        # B1 launches under two entries (product and chain); each kernel
+        # must run inside one prove.
+        b1 = sum(sum(per_prove.get(e, {}).values()) for e in ("mont_mul", "mont_pow"))
+        idle = [k for k, v in (("mont_mul", b1),
+                               ("point_add", sum(per_prove.get("point_add", {}).values())),
+                               ("point_double", sum(per_prove.get("point_double", {}).values())))
+                if v == 0]
+        idle += [k for k, v in g16_launches.items() if v == 0]
+        if idle:
+            raise RuntimeError(f"kernels not launched inside the prove: {sorted(set(idle))}")
     kernels = []
     for name, source, replaces, _ in KERNELS:
         s = stats[name]
@@ -416,7 +627,9 @@ def main() -> int:
         u = usage[first.get("entry", name)].get(12, {})
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": s["max_abs_err"],
+            "launches": launches[name] + g16_launches[name],
+            "launches_by_path": {"msm_2^20": launches[name], "groth16_2^16": g16_launches[name]},
+            "max_abs_err": s["max_abs_err"],
             "mismatches": s["mismatches"], "batch": first["batch"], "ms": first["ms"],
             "device_ms": first["device_ms"], "host_us": first["host_us"],
             "plain_ms": first["plain_ms"],

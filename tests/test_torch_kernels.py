@@ -260,3 +260,67 @@ def test_fixed_base_g1_on_card_matches_host(card):
     limbs = np.array([[k >> (16 * i) & 0xFFFF for i in range(16)] for k in ks], dtype=np.int32)
     pts = fixed_base_g1(torch.from_numpy(limbs).to(card))
     assert C.unpack_points(pts, L.field_spec(params.Q)) == [HC.g1_mul_affine(k) for k in ks]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", BATCHES[:3])
+def test_fq2_ops_on_card_match_plain(card, n):
+    """Fq2 mul/sq/inv on the card (B1 and its chain) against Fq2Ops over
+    the plain FqOps on the same card tensors; zero, one and u among the
+    rows."""
+    from zk_toolkit_tpu_torch.ops.tower_ops import Fq2Ops
+
+    spec = L.field_spec(params.Q)
+    rng = np.random.default_rng(n)
+    a = S.random_field(rng, 2 * n, spec, card).view(n, 2, spec.K)
+    b = S.random_field(rng, 2 * n, spec, card).view(n, 2, spec.K)
+    e2, plain = Fq2Ops(FqOps(spec)), Fq2Ops(FqOps(spec, plain=True))
+    a[0] = 0
+    if n > 2:
+        a[1] = e2.one_like(a[1])
+        a[2, 0], a[2, 1] = 0, a[1, 0]
+    before = L._mont_mul_fused.launches
+    _equal((e2.mul(a, b), e2.sq(a), e2.inv(a)), (plain.mul(a, b), plain.sq(a), plain.inv(a)))
+    assert L._mont_mul_fused.launches - before == 1 + 1 + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 1024])
+def test_ntt_on_card_matches_plain(card, n):
+    """The four transforms and the coset quotient on the card (products on
+    B1) against the same functions on the CPU."""
+    from zk_toolkit_tpu_torch.ops import ntt as N
+
+    spec = L.field_spec(params.R)
+    rng = np.random.default_rng(n)
+    xs = [S.random_field(rng, n, spec, card) for _ in range(3)]
+    dev_dom, cpu_dom = N.fr_domain(n, card), N.fr_domain(n, "cpu")
+    for fn in (N.ntt, N.intt, N.coset_ntt, N.coset_intt):
+        assert torch.equal(fn(dev_dom, xs[0]).cpu(), fn(cpu_dom, xs[0].cpu()))
+    assert torch.equal(N.h_coset_then_coeffs(dev_dom, *xs).cpu(),
+                       N.h_coset_then_coeffs(cpu_dom, *(x.cpu() for x in xs)))
+
+
+@pytest.mark.cuda
+def test_groth16_flagship_on_card_matches_trapdoor(card):
+    """The flagship circuit proved on the card (host-mode CRS): A, B, C are
+    the trapdoor's multiples of the generators, and B1, B2, B3 all ran."""
+    from zk_toolkit_tpu_torch import bench as B
+    from zk_toolkit_tpu_torch.protocols import groth16_device as GD
+    from zk_toolkit_tpu_torch.snark import term as T
+
+    f = params.SUBGROUP
+    wm = {T.One(): f.elem(1), T.Var("x"): f.elem(3), T.Out(): f.elem(35),
+          T.TmpVar(1): f.elem(9), T.TmpVar(2): f.elem(27), T.TmpVar(3): f.elem(8),
+          T.TmpVar(4): f.elem(35)}
+    trapdoor = dict(tau=12345, alpha=777, beta=888, gamma=999, delta=111213)
+    mat = GD.CircuitMatrices.from_expr("(x * x * x) + x + 5 == 35", device=card)
+    crs = GD.DeviceCRS.from_trapdoor(mat, point_mode="host", device=card, **trapdoor)
+    prover = GD.DeviceGroth16Prover(mat, wm, device=card)
+    counts = [L._mont_mul_fused.launches, CK.point_add_fused.launches,
+              CK.point_double_fused.launches]
+    proof = prover.prove_with_rs(crs, 4242, 5353)
+    after = [L._mont_mul_fused.launches, CK.point_add_fused.launches,
+             CK.point_double_fused.launches]
+    assert all(a > b for a, b in zip(after, counts))
+    assert B.proof_affine(proof) == B.trapdoor_proof(mat, prover.wires, 4242, 5353, **trapdoor)

@@ -204,3 +204,17 @@ def test_cuda_entry_points_raise_without_a_card():
     spec = TL.field_spec(params.Q)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TL.pack([1, 2], spec)
+
+
+def test_ints_to_array_equals_int_to_limbs_and_refuses_what_does_not_fit():
+    from zk_toolkit_tpu_torch.utils.bigint import int_to_limbs
+
+    rng = np.random.default_rng(5)
+    xs = [0, 1, (1 << 256) - 1] + [int(rng.integers(0, 1 << 62)) ** 4 for _ in range(20)]
+    arr = ints_to_array(xs, 16)
+    assert arr.dtype == np.uint32 and arr.shape == (len(xs), 16)
+    assert arr.tolist() == [int_to_limbs(x, 16) for x in xs]
+    assert ints_to_array([], 16).shape == (0, 16)
+    for bad in (1 << 256, -1):
+        with pytest.raises(ValueError):
+            ints_to_array([bad], 16)

@@ -161,3 +161,28 @@ def test_build_table_doubles_once_per_window_and_matches_host(monkeypatch):
     xs, ys = TL.unpack(ax, spec), TL.unpack(ay, spec)
     got = [None if i else (x, y) for x, y, i in zip(xs, ys, inf.tolist())]
     assert got == [THC.g1_mul_affine(d << (4 * w)) for w in range(16) for d in range(16)]
+
+
+def test_c3_msm_streams_in_chunks_above_the_limit(monkeypatch):
+    """C3: with ZKT_MSM_MAX_STREAM = 16, a 64-point MSM runs as four
+    16-point sub-MSMs joined by point_add; it equals the unchunked MSM and
+    the host sum in affine."""
+    ks, pts, sc = _inputs(64, seed=33)
+    sc[:, 4:] = 0                                       # 64-bit scalars
+    ops = TFqOps(TL.field_spec(Q))
+    tpts, tsc = convert.points_from_jax(pts, "cpu"), convert.scalars_from_jax(sc, "cpu")
+    whole = _affine(TM.msm_pippenger(ops, tpts, tsc, 64, c=4))
+
+    sizes = []
+    orig = TM._auto_window_chunk
+
+    def seen(n, *args):
+        sizes.append(n)
+        return orig(n, *args)
+
+    monkeypatch.setattr(TM, "_auto_window_chunk", seen)
+    monkeypatch.setenv("ZKT_MSM_MAX_STREAM", "16")
+    chunked = _affine(TM.msm_pippenger(ops, tpts, tsc, 64, c=4))
+    assert sizes == [16] * 4
+    s_int = [int.from_bytes(row.astype("<u2").tobytes(), "little") for row in sc]
+    assert chunked == whole == THC.g1_mul_affine(sum(k * s for k, s in zip(ks, s_int)) % R)

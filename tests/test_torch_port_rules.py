@@ -48,7 +48,10 @@ def test_port_imports_no_jax(path):
 def test_scan_sees_the_whole_port():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert "chip_smoke.py" in names
-    assert "zk_toolkit_tpu_torch/ops/msm.py" in names
+    for module in ("ops/msm.py", "ops/ntt.py", "ops/tower_ops.py", "ops/pairing_ops.py",
+                   "protocols/groth16_device.py", "snark/r1cs.py", "snark/synthetic.py",
+                   "fields/prime_field.py", "curves/bls12_381/pairing.py", "utils/rng.py"):
+        assert f"zk_toolkit_tpu_torch/{module}" in names
     assert _forbidden("jax.numpy") and _forbidden("zk_toolkit_tpu.ops.limbs")
     assert not _forbidden("zk_toolkit_tpu_torch.ops.limbs")
 

@@ -54,3 +54,39 @@ def table_from_jax(table, device="cuda") -> tuple:
 def table_to_jax(table) -> tuple:
     ax, ay, inf = table
     return (limbs_to_jax(ax), limbs_to_jax(ay), inf.detach().cpu().numpy().astype(bool))
+
+
+MATRIX_ARRAYS = ("a_idx", "b_idx", "c_idx", "a_val", "b_val", "c_val")
+CRS_POINTS = ("g1_alpha", "g1_beta", "g1_delta", "g2_beta", "g2_gamma", "g2_delta",
+              "g1_u", "g1_v", "g2_v", "g1_uvw_stmt", "g1_uvw_wit", "g1_xt")
+
+
+def matrices_from_jax(mat, tmpl, device="cuda"):
+    """The JAX package's CircuitMatrices -> the port's, on `device`: its
+    sizes and its arrays (int32 wire indices, uint32 Montgomery limbs; numpy
+    arrays or anything np.asarray reads), bound to the port's host template
+    `tmpl` of the same circuit (which the CRS and the prover read)."""
+    from zk_toolkit_tpu_torch.protocols.groth16_device import CircuitMatrices
+
+    dev = resolve_device(device)
+    arrays = {}
+    for name in MATRIX_ARRAYS:
+        arr = np.asarray(getattr(mat, name))
+        if name.endswith("_idx"):
+            if arr.dtype != np.int32:
+                raise ValueError(f"{name}: expected int32 wire indices, got {arr.dtype}")
+            arrays[name] = torch.from_numpy(arr.copy()).to(dev)
+        else:
+            arrays[name] = limbs_from_jax(arr, dev)
+    return CircuitMatrices(n=mat.n, n_pad=mat.n_pad, m=mat.m, l=mat.l, kmax=mat.kmax,
+                           tmpl=tmpl, **arrays)
+
+
+def crs_from_jax(crs, mat, device="cuda"):
+    """The JAX package's DeviceCRS (its Jacobian point tuples of uint32
+    limb arrays, [n, K] for G1 and [n, 2, K] for G2) -> the port's, for the
+    port's CircuitMatrices `mat` of the same circuit."""
+    from zk_toolkit_tpu_torch.protocols.groth16_device import DeviceCRS
+
+    return DeviceCRS(mat=mat, **{name: points_from_jax(getattr(crs, name), device)
+                                 for name in CRS_POINTS})

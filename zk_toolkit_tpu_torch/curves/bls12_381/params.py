@@ -1,6 +1,9 @@
-"""BLS12-381 constants as plain ints: base field modulus Q, subgroup order
-R, and the G1 generator's affine coordinates (E: y^2 = x^3 + 4 over Fq).
-The same values as zk_toolkit_tpu/curves/bls12_381/{params,g1}.py."""
+"""BLS12-381 parameters: base field modulus Q, subgroup order R, the field
+objects of the host tier, and the G1 and G2 generators as plain ints
+(E: y^2 = x^3 + 4 over Fq, E': y^2 = x^3 + 4(1 + u) over Fq2). The same
+values as zk_toolkit_tpu/curves/bls12_381/{params,g1,g2}.py."""
+
+from zk_toolkit_tpu_torch.fields.prime_field import PrimeField
 
 #: Base field modulus q (381 bits)
 Q = int(
@@ -8,8 +11,14 @@ Q = int(
     "1eabfffeb153ffffb9feffffffffaaab",
     16,
 )
-#: Subgroup order r (255 bits)
+#: Subgroup order r (255 bits); 2-adicity 32 (r - 1 = 2^32 * odd), which is
+#: what makes radix-2 NTT over Fr possible for the QAP pipeline.
 R = int("73eda753299d7d483339d80809a1d80553bda402fffe5bfeffffffff00000001", 16)
+
+EMBEDDING_DEGREE = 12
+
+BASE_PRIME_FIELD = PrimeField(Q)
+SUBGROUP = PrimeField(R)
 
 #: G1 generator, affine
 G1_X = int(
@@ -22,3 +31,13 @@ G1_Y = int(
     "d03cc744a2888ae40caa232946c5e7e1",
     16,
 )
+
+#: G2 generator, affine: x = G2_X0 + G2_X1 u, y = G2_Y0 + G2_Y1 u
+G2_X0 = int(
+    "024aa2b2f08f0a91260805272dc51051c6e47ad4fa403b02b4510b647ae3d1770bac0326a805bbefd48056c8c121bdb8", 16)
+G2_X1 = int(
+    "13e02b6052719f607dacd3a088274f65596bd0d09920b61ab5da61bbdc7f5049334cf11213945d57e5ac7d055d042b7e", 16)
+G2_Y0 = int(
+    "0ce5d527727d6e118cc9cdc6da2e351aadfd9baa8cbdd3a76d429a695160d12c923ac9cc3baca289e193548608b82801", 16)
+G2_Y1 = int(
+    "0606c4a02ea734cc32acd2b02bc28b99cb3e287e85a763af267492ab572e99ab3f370d275cec1da1aaa9075ff05f79be", 16)

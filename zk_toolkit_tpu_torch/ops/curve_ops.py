@@ -2,14 +2,17 @@
 port of zk_toolkit_tpu/ops/curve_ops.py).
 
 Point representation: a `(x, y, z)` tuple of int32 Montgomery limb tensors
-[..., K]; infinity <=> z == 0 (canonically (1, 1, 0) in Montgomery form).
-Scalars are plain (non-Montgomery) 16-bit limb tensors [..., S].
+[..., K] over FqOps (G1) or [..., 2, K] over ops/tower_ops.Fq2Ops (G2);
+infinity <=> z == 0 (canonically (1, 1, 0) in Montgomery form). Scalars
+are plain (non-Montgomery) 16-bit limb tensors [..., S].
 
 `point_add` / `point_double` / `point_double_n` launch kernels B2 / B3
 (ops/curve_kernels.py) for every CUDA batch of a base-field FqOps, at every
 batch size; the formulas `_point_add_formula` / `_point_double_formula` are
 their plain versions, run for CPU tensors and for FqOps(plain=True), the
-reference the kernels are held against.
+reference the kernels are held against. Over Fq2Ops the formulas always
+run (their products on B1), as in the JAX package, which takes its fused
+law only for one struct axis.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from zk_toolkit_tpu_torch.ops import curve_kernels as CK
 from zk_toolkit_tpu_torch.ops import limbs as L
 from zk_toolkit_tpu_torch.ops.field_ops import FqOps
 from zk_toolkit_tpu_torch.utils import host_curve as HC
-from zk_toolkit_tpu_torch.utils.bigint import LIMB_BITS, int_to_limbs
+from zk_toolkit_tpu_torch.utils.bigint import LIMB_BITS, ints_to_array
 
 
 # -- point helpers -----------------------------------------------------------
@@ -148,6 +151,27 @@ def pad_to_pow2(ops, p, scalars=None):
     return p
 
 
+# -- scalar multiplication ---------------------------------------------------
+
+def _scalar_bit(scalars: torch.Tensor, i: int) -> torch.Tensor:
+    """Bit i (0 = LSB) of each batched scalar limb vector, int32[...batch]."""
+    return (scalars[..., i // LIMB_BITS] >> (i % LIMB_BITS)) & 1
+
+
+def scalar_mul(ops, p, scalars: torch.Tensor, nbits: int):
+    """Batched double-and-add, MSB first over a static bit count: per bit a
+    doubling, an add of P and a select on the bit, in the JAX package's
+    order. On a card over a base-field FqOps each step is one launch of B3
+    and one of B2, 2 * nbits dependent launches a call; over Fq2Ops the
+    formulas run."""
+    acc = infinity_like(ops, p)
+    for i in range(nbits - 1, -1, -1):
+        acc = point_double(ops, acc)
+        added = point_add(ops, acc, p)
+        acc = select_point(ops, _scalar_bit(scalars, i) == 1, added, acc)
+    return acc
+
+
 # -- affine normalization ----------------------------------------------------
 
 def to_affine(ops, p):
@@ -191,7 +215,5 @@ def pack_scalars(ks, nbits: int, device="cuda") -> torch.Tensor:
     from zk_toolkit_tpu_torch import resolve_device
 
     s = (nbits + LIMB_BITS - 1) // LIMB_BITS
-    arr = np.zeros((len(ks), s), dtype=np.int32)
-    for i, k in enumerate(ks):
-        arr[i] = int_to_limbs(int(k), s)
+    arr = ints_to_array(ks, s).astype(np.int32)
     return torch.from_numpy(arr).to(resolve_device(device))

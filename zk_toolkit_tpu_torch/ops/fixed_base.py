@@ -1,12 +1,15 @@
 """Windowed fixed-base scalar multiplication (the port of
-zk_toolkit_tpu/ops/fixed_base.py, without its on-disk table cache: building
-a G1 table on the card takes milliseconds).
+zk_toolkit_tpu/ops/fixed_base.py, without its on-disk table cache).
 
 Precompute T[w][d] = d * 2^(c*w) * G once; every scalar multiplication is
 then W = ceil(nbits/c) table gathers plus a log2(W)-deep tree of batched
 point additions — no doublings. The table is stored in affine form
 ((x, y, inf)) and lifted to Jacobian z in {0, 1} for the gathers. Batches
 are chunked to fit the device's free memory.
+
+Generic over the field-ops namespace: FqOps gives G1 tables, Fq2Ops G2
+ones. A coordinate keeps its struct axes ([..., K] or [..., 2, K]) through
+the table and the gathers, and is budgeted at prod(shape[1:]) words.
 """
 
 from __future__ import annotations
@@ -51,9 +54,10 @@ def build_table(ops, base_jac, nbits: int, c: int):
     for _ in range(m):
         entries.append(acc)
         acc = C.point_add(ops, acc, g_ws)
-    # [2^c, W, K] -> flat [W * 2^c, K] with index w * 2^c + d
+    # [2^c, W, ...] -> flat [W * 2^c, ...] with index w * 2^c + d
     flat = tuple(
-        torch.stack([e[i] for e in entries], dim=0).transpose(0, 1).reshape(n_win * m, -1)
+        torch.stack([e[i] for e in entries], dim=0).transpose(0, 1)
+        .reshape((n_win * m,) + entries[0][i].shape[1:])
         for i in range(3)
     )
     return C.to_affine(ops, flat)
@@ -80,9 +84,9 @@ def _gather_fold(ops, table, scalars: torch.Tensor, c: int):
     digs = torch.stack([_digits(scalars, c, w) for w in range(n_win)], dim=0)
     wi = torch.arange(n_win, device=scalars.device)[:, None]
     flat_idx = wi * m + digs
-    # one gather of fused [x | y | z] rows of the lifted table
-    comb = torch.cat(_lift(ops, table), dim=-1)              # [T, 3K]
-    g = comb[flat_idx]                                       # [W, B, 3K]
+    # one gather of fused [..., x | y | z] rows of the lifted table
+    comb = torch.cat(_lift(ops, table), dim=-1)              # [T, ..., 3K]
+    g = comb[flat_idx]                                       # [W, B, ..., 3K]
     pts = (g[..., :k], g[..., k:2 * k], g[..., 2 * k:])
     # pad W to a power of two with infinity, then halve along axis 0
     n = n_win
@@ -117,9 +121,9 @@ def scalar_mul_fixed(ops, table, scalars: torch.Tensor, c: int):
     per-window point copies stay inside half the device's free memory."""
     b = scalars.shape[0]
     n_win = scalars.shape[1] * LIMB_BITS // c
-    k = table[0].shape[-1]
-    # gathered [W, B, 3K] copy + the first tree level + its inputs' views
-    per_row = n_win * 3 * k * 4 * 2
+    words = table[0][0].numel()                  # prod(shape[1:]) a coordinate
+    # gathered [W, B, ..., 3K] copy + the first tree level + its inputs' views
+    per_row = n_win * 3 * words * 4 * 2
     chunk = max(1, _free_bytes(scalars.device) // 2 // per_row)
     if b <= chunk:
         return _gather_fold(ops, table, scalars, c)

@@ -35,7 +35,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from zk_toolkit_tpu_torch.utils.bigint import LIMB_BITS, LIMB_MASK, int_to_limbs, num_limbs
+from zk_toolkit_tpu_torch.utils.bigint import (LIMB_BITS, LIMB_MASK, int_to_limbs, ints_to_array,
+                                              num_limbs)
 
 MASK = LIMB_MASK
 
@@ -361,9 +362,7 @@ def pack(xs, spec: FieldSpec, mont: bool = True, device="cuda") -> torch.Tensor:
     form) on `device`."""
     from zk_toolkit_tpu_torch import resolve_device
 
-    arr = np.zeros((len(xs), spec.K), dtype=np.int32)
-    for i, x in enumerate(xs):
-        arr[i] = int_to_limbs(x % spec.p, spec.K)
+    arr = ints_to_array([x % spec.p for x in xs], spec.K).astype(np.int32)
     out = torch.from_numpy(arr).to(resolve_device(device))
     return to_mont(out, spec) if mont else out
 

@@ -21,14 +21,21 @@ of a level, flattened over all windows, are one strided [W*N/2, K] view
 per coordinate, which kernel B2 reads in place.
 
 Every group-law call goes through ops/curve_ops.point_add/point_double, so
-on a card the MSM runs on kernels B2/B3 and on the CPU on the plain
-formulas; the operations and their order are the JAX package's, so the
-result's limbs are its limbs.
+on a card a G1 MSM (FqOps) runs on kernels B2/B3 and on the CPU on the
+plain formulas; a G2 MSM (Fq2Ops, coordinates [N, 2, K]) runs the formulas
+everywhere, their products on B1. The operations and their order are the
+JAX package's, so the result's limbs are its limbs.
+
+Above ZKT_MSM_MAX_STREAM points (default 2^20) the stream is cut into
+sub-MSMs of that many points whose results are joined by point_add, as in
+the JAX package: the result is the same point, in another Jacobian
+representation.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 
 import torch
 
@@ -151,6 +158,12 @@ def _horner_combine(ops, window_pts, c: int):
     return acc
 
 
+def _point_words(pts) -> int:
+    """32-bit words of one point: prod(shape[1:]) over its coordinates
+    (3K for G1, 6K for G2)."""
+    return sum(a[0].numel() for a in pts)
+
+
 def _auto_window_chunk(n: int, n_windows: int, struct_elems: int, device) -> int:
     """How many windows to batch per group: as many as fit in half of the
     device memory free right now, at ~3 live W-wide stream copies per pass
@@ -174,14 +187,23 @@ def msm_pippenger(ops, pts, scalars: torch.Tensor, nbits: int, c: int | None = N
     one sort/up-sweep/Fenwick pass covers a whole group. `spans`, a
     utils.profiling.Spans, times the stages when given."""
     span = spans.span if spans is not None else contextlib.nullcontext
+    n_raw = pts[0].shape[0]
+    step = 1 << (int(os.environ.get("ZKT_MSM_MAX_STREAM", 1 << 20)).bit_length() - 1)
+    if n_raw > step:
+        acc = None
+        for lo in range(0, n_raw, step):
+            part = msm_pippenger(ops, tuple(a[lo:lo + step] for a in pts),
+                                 scalars[lo:lo + step], nbits, c, spans)
+            acc = part if acc is None else tuple(x[0] for x in C.point_add(
+                ops, tuple(x[None] for x in acc), tuple(x[None] for x in part)))
+        return acc
     pts, scalars = C.pad_to_pow2(ops, pts, scalars)
     n = pts[0].shape[0]
     c = c or default_window_bits(n)
     if LIMB_BITS % c:
         raise ValueError("window size must divide the limb width")
     n_windows = (nbits + c - 1) // c
-    struct = sum(a.shape[-1] for a in pts)
-    wc = _auto_window_chunk(n, n_windows, struct, scalars.device)
+    wc = _auto_window_chunk(n, n_windows, _point_words(pts), scalars.device)
     partials = []  # per group: tuple of [W, K], ascending windows
     for lo in range(0, n_windows, wc):
         hi = min(lo + wc, n_windows)

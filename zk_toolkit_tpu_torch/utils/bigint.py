@@ -43,11 +43,13 @@ def limbs_to_int(limbs: Sequence[int]) -> int:
 
 
 def ints_to_array(xs: Sequence[int], k: int) -> np.ndarray:
-    """Batch of ints -> uint32 ndarray of shape (len(xs), k)."""
-    out = np.empty((len(xs), k), dtype=np.uint32)
-    for i, x in enumerate(xs):
-        out[i] = int_to_limbs(x, k)
-    return out
+    """Batch of ints -> uint32 ndarray of shape (len(xs), k): the limbs of
+    int_to_limbs, through one little-endian byte string per int."""
+    try:
+        buf = b"".join(int(x).to_bytes(2 * k, "little") for x in xs)
+    except OverflowError as e:
+        raise ValueError(f"value negative or wider than {k} limbs") from e
+    return np.frombuffer(buf, dtype="<u2").reshape(len(xs), k).astype(np.uint32)
 
 
 def array_to_ints(a) -> list[int]:

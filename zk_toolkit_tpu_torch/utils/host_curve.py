@@ -1,10 +1,12 @@
 """Host-side (raw Python int) Jacobian curve arithmetic: the oracle the
-device path is checked against (the port's own copy of
-zk_toolkit_tpu/utils/host_curve.py, G1 part).
+device path is checked against, and the CRS's "host" point mode (the
+port's own copy of zk_toolkit_tpu/utils/host_curve.py).
 
 Inversion-free Jacobian formulas (dbl-2009-l / add-2007-bl, the same as
-ops/curve_ops.py) over bare ints, with one modular inverse per
-jac_to_affine. Points are (x, y, z) triples; z == 0 means infinity.
+ops/curve_ops.py) over bare values, with one modular inverse per
+jac_to_affine. Field protocol: mul/sq/add/sub/dbl/inv/is_zero over raw
+values, int for Fq (G1, FpHost) and (u0, u1) int pairs for Fq2 (G2,
+Fp2Host, u^2 = -1). Points are (x, y, z) triples; z == 0 means infinity.
 """
 
 from __future__ import annotations
@@ -43,6 +45,45 @@ class FpHost:
 
     def is_zero(self, a):
         return a == 0
+
+
+class Fp2Host:
+    """(u0, u1) pairs over Fq with u^2 = -1 (BLS12-381 Fq2)."""
+
+    def __init__(self, p: int):
+        self.p = p
+        self.zero = (0, 0)
+        self.one = (1, 0)
+
+    def mul(self, a, b):
+        p = self.p
+        a0, a1 = a
+        b0, b1 = b
+        return ((a0 * b0 - a1 * b1) % p, (a0 * b1 + a1 * b0) % p)
+
+    def sq(self, a):
+        return self.mul(a, a)
+
+    def add(self, a, b):
+        p = self.p
+        return ((a[0] + b[0]) % p, (a[1] + b[1]) % p)
+
+    def sub(self, a, b):
+        p = self.p
+        return ((a[0] - b[0]) % p, (a[1] - b[1]) % p)
+
+    def dbl(self, a):
+        p = self.p
+        return (2 * a[0] % p, 2 * a[1] % p)
+
+    def inv(self, a):
+        p = self.p
+        a0, a1 = a
+        d = pow(a0 * a0 + a1 * a1, -1, p)
+        return (a0 * d % p, -a1 * d % p)
+
+    def is_zero(self, a):
+        return a == (0, 0)
 
 
 def jac_double(F, pt):
@@ -118,6 +159,15 @@ def from_affine(F, xy):
     return (xy[0], xy[1], F.one)
 
 
+def multi_mul(F, base_affine, scalars):
+    """[k * G for k in scalars] as affine tuples (None = infinity)."""
+    base = from_affine(F, base_affine)
+    return [jac_to_affine(F, jac_mul(F, base, int(k))) for k in scalars]
+
+
+G2_AFFINE = ((params.G2_X0, params.G2_X1), (params.G2_Y0, params.G2_Y1))
+
+
 def g1_mul_affine(k: int):
     """k * G1 as an affine (x, y) int pair, or None."""
     F = FpHost(params.Q)
@@ -142,6 +192,29 @@ def pack_g1_jac(affs, spec) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
             xs[i] = int_to_limbs(a[0] * spec.r_mod_p % spec.p, spec.K)
             ys[i] = int_to_limbs(a[1] * spec.r_mod_p % spec.p, spec.K)
             zs[i] = one
+    return (xs, ys, zs)
+
+
+def pack_g2_jac(affs, spec) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Affine ((x0, x1), (y0, y1))/None list -> host Jacobian tuple with the
+    Fq2 structure axis, uint32[N, 2, K] each, Montgomery form, infinity =
+    (1, 1, 0)."""
+    n = len(affs)
+    xs = np.zeros((n, 2, spec.K), dtype=np.uint32)
+    ys = np.zeros((n, 2, spec.K), dtype=np.uint32)
+    zs = np.zeros((n, 2, spec.K), dtype=np.uint32)
+    one = int_to_limbs(spec.r_mod_p, spec.K)
+    for i, a in enumerate(affs):
+        if a is None:
+            xs[i, 0] = one
+            ys[i, 0] = one
+        else:
+            (x0, x1), (y0, y1) = a
+            xs[i, 0] = int_to_limbs(x0 * spec.r_mod_p % spec.p, spec.K)
+            xs[i, 1] = int_to_limbs(x1 * spec.r_mod_p % spec.p, spec.K)
+            ys[i, 0] = int_to_limbs(y0 * spec.r_mod_p % spec.p, spec.K)
+            ys[i, 1] = int_to_limbs(y1 * spec.r_mod_p % spec.p, spec.K)
+            zs[i, 0] = one
     return (xs, ys, zs)
 
 
