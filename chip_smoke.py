@@ -4,15 +4,25 @@ GPU: builds the kernels from csrc/, holds each against its plain PyTorch
 version on the card (B1's static-exponent chain, and B1 at the NTT, SpMV
 and Fq2 shapes of the Groth16 prove, too), drives the 2^20-point
 BLS12-381 G1 MSM through the port's bench entry point with the known-dlog
-check (phase `slice`), then the Groth16 prove at 2^16 constraints through
-bench_groth16 (phase `groth16`: every proof equal to the trapdoor's
-multiples of the generators, host_oracle_verify accepting it and rejecting
-a tampered statement, B1, B2 and B3 each launched inside one prove), and
-prints:
+check (phase `slice`), then the Groth16 prove and verify at 2^16
+constraints through bench_groth16 (phase `groth16`: every proof equal to
+the trapdoor's multiples of the generators, host_oracle_verify and the
+device verifier both accepting it and rejecting a tampered statement, B1,
+B2 and B3 each launched inside one prove and inside one verify), the
+batched optimal-ate pairing (phase `pairing`: bench_pairing at B = 256
+against the host optimal-ate, bench_field_muls, entry()'s Miller loop on
+the kernels equal limb for limb to the same loop on the plain versions),
+and Pinocchio at 2^16 constraints (phase `pinocchio`: bench_pinocchio, the
+nine proof elements equal to their trapdoor multiples, the device verifier
+accepting and rejecting a wrong statement, B1, B2 and B3 each launched
+inside one prove), and prints:
 
   phase lines, each with its seconds;
   the prove's seconds, stage split, launches by kernel and batch, peak
-    memory and the NTT's B1 / add-sub split;
+    memory and the NTT's B1 / add-sub split; for the Groth16 verify, the
+    pairing batch and the Pinocchio prove and verify: seconds, launches by
+    kernel and batch, plain add/sub/neg calls, _norm calls and host syncs
+    (count_path), peak memory;
   a `kernels` JSON line: per kernel its route, source, the TPU kernel it
     replaces, launches over the MSM run and the prove run together (and by
     path in `launches_by_path`), the largest limb difference from
@@ -27,7 +37,10 @@ prints:
     prove's batches: B1 at a [2^15]-product NTT stage (twiddle row
     broadcast) and the [2^16, 2] SpMV product, B2 at a 2^21-pair up-sweep
     level (the 2^17-point MSMs) and on 1 and 3 points (scalar_mul), B3 on 1
-    and 3 points at r = 1 (scalar_mul);
+    and 3 points at r = 1 (scalar_mul); and the pairing's: B1 at the Fq12
+    product stack of the Groth16 verify (54 x 4 rows) and of bench_pairing
+    (54 x 256 rows), and B1's chain at the 256 rows of bench_pairing's Fq12
+    inverse; each timing entry carries its launches on each path;
   the card's name and power limit as nvidia-smi prints them;
   last, {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -85,7 +98,18 @@ FQ2_BATCHES = (1, 257, 8192)
 B1_LAUNCHES_PER_BENCH = 2 * (1 + 4) + 2
 # The first up-sweep level of the 2^20 MSM: even/odd rows of [2^23, 3K].
 UPSWEEP_PAIRS = 1 << 22
-PHASE_LIMIT_S = {"build": 200, "parity": 250, "slice": 150, "groth16": 550}
+# The pairing's B1 shapes: an Fq12 product is one launch over 54 stacked Fq
+# rows per element; the Groth16 verify multiplies [B = 1, J = 4] Miller
+# values, bench_pairing B = 256.
+FQ12_STACKS = ((1, 4), (256,))
+PAIRING_B = 256
+PINOCCHIO_LOG2_N = 16
+# Each phase's limit is at least twice the longest time measured for it on
+# an H100 (build 24, parity 72, slice 7.7, pairing 70.4, pinocchio 213.4 s;
+# groth16 167 s, a run of 186.9 s less the one prove it no longer makes);
+# the sum stays at 1150 s, inside the script's 1200 s.
+PHASE_LIMIT_S = {"build": 50, "parity": 155, "slice": 17, "groth16": 345, "pairing": 150,
+                 "pinocchio": 433}
 
 
 class PhaseTimeout(Exception):
@@ -251,7 +275,8 @@ def parity_and_timing(dev) -> dict:
         res["mont_mul"]["timings"].append(timed(
             lambda: L.mont_inv(a, fq), lambda: L.mont_inv_plain(a, fq), reps, 1,
             n * 2 * word, n * imad(k, sets, len(inv_bits)), batch=n,
-            entry="mont_pow", what="mont_inv (Fq, one launch)"))
+            entry="mont_pow", count_key=f"K=24 {n} x r={len(inv_bits)}",
+            what="mont_inv (Fq, one launch)"))
         # The same inverse as one product launch per square and multiply,
         # the path of every inverse before the chain entry (610 launches).
         steps = functools.partial(L._mont_mul_fused, spec=fq)
@@ -322,6 +347,44 @@ def parity_and_timing(dev) -> dict:
     torch.cuda.synchronize()
     print(f"parity of B1 at the prove's shapes (NTT stages {list(NTT_STAGES)} of 2^16, SpMV "
           f"[2^16, {SPMV_KMAX}], Fq2 mul/sq/inv at {list(FQ2_BATCHES)}): "
+          f"{res['mont_mul']['mismatches'] - before} mismatching rows", flush=True)
+
+    # The pairing: Fq12 mul, sq, inv and frobenius on the card (B1 and its
+    # chain) against the same ops over the plain FqOps, at the stacks of the
+    # Groth16 verify and of bench_pairing; then B1 alone at those stacks and
+    # its chain at bench_pairing's 256-row inverse.
+    from zk_toolkit_tpu_torch.ops import pairing_ops as P
+
+    before = res["mont_mul"]["mismatches"]
+    po, pp_ = P.bls_pairing_ops(), P.bls_pairing_ops(plain=True)
+    e12, e12p = po.e12, pp_.e12
+    for lead in FQ12_STACKS:
+        rows = int(np.prod(lead))
+        a = S.random_field(rng, 12 * rows, fq, dev).view(lead + (2, 3, 2, k))
+        b = S.random_field(rng, 12 * rows, fq, dev).view(lead + (2, 3, 2, k))
+        a.view(-1, 12, k)[0] = 0                       # a zero element (inverse 0)
+        for got, want in ((e12.mul(a, b), e12p.mul(a, b)), (e12.sq(a), e12p.sq(a)),
+                          (e12.inv(a), e12p.inv(a)),
+                          *((po.frobenius(a, q), pp_.frobenius(a, q)) for q in (1, 2, 3))):
+            record("mont_mul", (got,), (want,))
+        n = 54 * rows
+        x = S.random_field(rng, n, fq, dev).view((3, 6, 3) + lead + (k,))
+        y = S.random_field(rng, n, fq, dev).view((3, 6, 3) + lead + (k,))
+        record("mont_mul", (L._mont_mul_fused(x, y, fq),), (L.mont_mul_plain(x, y, fq),))
+        res["mont_mul"]["timings"].append(timed(
+            lambda: L._mont_mul_fused(x, y, fq), lambda: L.mont_mul_plain(x, y, fq), 200, 5,
+            n * 3 * word, n * imad(k, 1, 0), batch=n, entry="mont_mul", count_key=f"K=24 {n}",
+            what=f"Fq12 product stack [3, 6, 3, {', '.join(map(str, lead))}, 24]"))
+    a = S.random_field(rng, PAIRING_B, fq, dev)
+    record("mont_mul", (L.mont_inv(a, fq),), (L.mont_inv_plain(a, fq),))
+    res["mont_mul"]["timings"].append(timed(
+        lambda: L.mont_inv(a, fq), lambda: L.mont_inv_plain(a, fq), 20, 1,
+        PAIRING_B * 2 * word, PAIRING_B * imad(k, sets, len(inv_bits)), batch=PAIRING_B,
+        entry="mont_pow", count_key=f"K=24 {PAIRING_B} x r={len(inv_bits)}",
+        what="mont_inv (Fq), the chain of bench_pairing's Fq12 inverse"))
+    torch.cuda.synchronize()
+    print(f"parity of B1 at the pairing's shapes (Fq12 mul/sq/inv/frobenius at "
+          f"{list(FQ12_STACKS)}, B1 at their 54-row stacks, the chain at {PAIRING_B}): "
           f"{res['mont_mul']['mismatches'] - before} mismatching rows", flush=True)
 
     n = TIMING_BATCH["point_add"]                  # generic pairs, as in the stream
@@ -471,10 +534,53 @@ def add_sub_timings(dev) -> dict:
     return out
 
 
+def count_path(fn, results: list | None = None) -> dict:
+    """One instrumented run of fn(): launches by kernel and batch
+    (count_launches), plain add/sub/neg calls, _norm calls and host syncs
+    (count_field_ops), and the card's peak memory over it; fn's result is
+    appended to `results` when given."""
+    dev = torch.device("cuda")
+    out = {}
+    results = [] if results is None else results
+
+    def run():
+        out["field_ops"] = count_field_ops(lambda: results.append(fn()))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out["launches"] = count_launches(run)
+    out["seconds_instrumented"] = time.perf_counter() - t0
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    return out
+
+
+def observing(into: dict):
+    """An `observe` hook for bench's untimed first calls: runs the call under
+    count_path, keeps its counts in into[name], returns the call's result."""
+    def observe(name, f):
+        results = []
+        into[name] = count_path(f, results)
+        return results[0]
+    return observe
+
+
+def require_all_launched(per_batch: dict, what: str) -> None:
+    """Raises unless B1 (either entry), B2 and B3 each launched in a
+    count_launches result."""
+    n = {"mont_mul": sum(sum(per_batch.get(e, {}).values()) for e in ("mont_mul", "mont_pow")),
+         "point_add": sum(per_batch.get("point_add", {}).values()),
+         "point_double": sum(per_batch.get("point_double", {}).values())}
+    idle = [k for k, v in n.items() if v == 0]
+    if idle:
+        raise RuntimeError(f"kernels not launched inside {what}: {idle}")
+
+
 def groth16_run(dev) -> dict:
-    """bench_groth16 at 2^16 constraints (its checks raise on a wrong
-    proof), then the launches of one more prove by kernel and batch."""
-    from zk_toolkit_tpu_torch.bench import TIMED_RS, bench_groth16, groth16_setup
+    """bench_groth16 at 2^16 constraints (its checks raise on a wrong proof
+    or a wrong verdict), its untimed warm-up prove and first verify
+    instrumented (count_path)."""
+    from zk_toolkit_tpu_torch.bench import bench_groth16, groth16_setup
 
     torch.cuda.reset_peak_memory_stats(dev)
     setup = groth16_setup(GROTH16_LOG2_N, dev)
@@ -483,12 +589,74 @@ def groth16_run(dev) -> dict:
           f"{setup['mat'].kmax} | R1CS + matrices {setup['setup_s']:.2f} s | CRS (table mode) "
           f"{setup['crs_s']:.3f} s, peak {crs_peak / 2**30:.2f} GiB | prover init "
           f"{setup['prover_init_s']:.2f} s", flush=True)
-    out = bench_groth16(device=dev, setup=setup)
+    counts = {}
+    out = bench_groth16(device=dev, setup=setup, observe=observing(counts))
     out["crs_peak_bytes"] = crs_peak
-    prover, crs = setup["prover"], setup["crs"]
-    out["launches_per_prove"] = count_launches(lambda: prover.prove_with_rs(crs, *TIMED_RS))
-    out["field_ops_per_prove"] = count_field_ops(lambda: prover.prove_with_rs(crs, *TIMED_RS))
+    out["launches_per_prove"] = counts["prove"]["launches"]
+    out["field_ops_per_prove"] = counts["prove"]["field_ops"]
+    out["verify_count"] = counts["verify"]
     out["add_sub_ms"] = add_sub_timings(dev)
+    return out
+
+
+def pairing_run(dev) -> dict:
+    """bench_pairing at B = 256 (refused unless it equals the host
+    optimal-ate), bench_field_muls, entry()'s Miller loop on the kernels
+    against the same loop on the plain versions (limb for limb), and one
+    instrumented pairing batch (count_path)."""
+    from zk_toolkit_tpu_torch.bench import bench_field_muls, bench_pairing
+    from zk_toolkit_tpu_torch.curves.bls12_381 import g1, g2
+    from zk_toolkit_tpu_torch.entry import entry
+    from zk_toolkit_tpu_torch.ops import pairing_ops as P
+
+    out = {"bench_pairing": bench_pairing(PAIRING_B, dev)}
+    out["bench_field_muls"] = bench_field_muls(device=dev)
+    fn, args = entry(dev)
+    t0 = time.perf_counter()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    out["entry_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = P.bls_pairing_ops(plain=True).miller_loop(*args)
+    torch.cuda.synchronize()
+    out["entry_plain_s"] = time.perf_counter() - t0
+    rows, err = diff_stats((got,), (want,))
+    if rows or err:
+        raise RuntimeError(f"entry()'s Miller loop on the kernels differs from the plain "
+                           f"versions: {rows} rows, max limb error {err}")
+    out["entry_mismatches"] = 0
+    out["entry_launches"] = count_launches(lambda: fn(*args))
+    ops = P.bls_pairing_ops()
+    spec = ops.f.spec
+    pa = tuple(a.expand((PAIRING_B,) + a.shape[1:]).contiguous()
+               for a in P.pack_g1_affine([g1.g() * 3], spec, dev))
+    qa = tuple(a.expand((PAIRING_B,) + a.shape[1:]).contiguous()
+               for a in P.pack_g2_affine([g2.g() * 5], spec, dev))
+    out["count"] = count_path(lambda: P.pairing_e(ops, pa, qa))
+    return out
+
+
+def pinocchio_run(dev) -> dict:
+    """bench_pinocchio at 2^16 constraints from a fresh CRS (its checks
+    raise on a proof element that is not its trapdoor multiple or a wrong
+    verdict; its first, untimed verify instrumented), then one instrumented
+    prove (count_path)."""
+    from zk_toolkit_tpu_torch.bench import PINOCCHIO_DELTAS, bench_pinocchio, pinocchio_setup
+    from zk_toolkit_tpu_torch.protocols import groth16_device as GD
+
+    # crs_s as a fresh process pays it: the fixed-base tables the Groth16
+    # CRS built are dropped first.
+    GD._g1_table.cache_clear()
+    GD._g2_table.cache_clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    setup = pinocchio_setup(PINOCCHIO_LOG2_N, dev)
+    out = {"crs_peak_bytes": torch.cuda.max_memory_allocated(dev)}
+    counts = {}
+    out.update(bench_pinocchio(device=dev, setup=setup, observe=observing(counts)))
+    prover, crs = setup["prover"], setup["crs"]
+    out["prove_count"] = count_path(lambda: prover.prove_with_deltas(crs, *PINOCCHIO_DELTAS))
+    out["verify_count"] = counts["verify"]
     return out
 
 
@@ -523,6 +691,22 @@ def counters():
 
     return {"mont_mul": L._mont_mul_fused, "point_add": CK.point_add_fused,
             "point_double": CK.point_double_fused}
+
+
+def path_run(fn, dev, kernels) -> dict:
+    """fn(dev) with every kernel's launch count set to 0 just before and read
+    just after: {"out": its result, "launches": per kernel}; raises if one
+    of `kernels`, those of the path, was launched no time."""
+    for f in counters().values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    out = fn(dev)
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters().items()}
+    idle = [k for k in kernels if launches[k] == 0]
+    if idle:
+        raise RuntimeError(f"kernels not launched on the path {fn.__name__}: {idle}")
+    return {"out": out, "launches": launches}
 
 
 def main() -> int:
@@ -610,25 +794,75 @@ def main() -> int:
               + " | ms per add/sub call: " + json.dumps(
                   {k: round(v, 4) for k, v in g16["add_sub_ms"].items()}), flush=True)
         print("groth16 result: " + json.dumps(g16), flush=True)
-        # B1 launches under two entries (product and chain); each kernel
-        # must run inside one prove.
-        b1 = sum(sum(per_prove.get(e, {}).values()) for e in ("mont_mul", "mont_pow"))
-        idle = [k for k, v in (("mont_mul", b1),
-                               ("point_add", sum(per_prove.get("point_add", {}).values())),
-                               ("point_double", sum(per_prove.get("point_double", {}).values())))
-                if v == 0]
-        idle += [k for k, v in g16_launches.items() if v == 0]
+        require_all_launched(per_prove, "one Groth16 prove")
+        idle = [k for k, v in g16_launches.items() if v == 0]
         if idle:
-            raise RuntimeError(f"kernels not launched inside the prove: {sorted(set(idle))}")
+            raise RuntimeError(f"kernels not launched in phase groth16: {idle}")
+        vc = g16["verify_count"]
+        require_all_launched(vc["launches"], "one Groth16 verify")
+        print(f"groth16 verify: the device verifier accepts the proof and rejects a tampered "
+              f"statement, as host_oracle_verify does | verify_s {g16['verify_s']:.4f} s (first "
+              f"{g16['verify_first_s']:.3f} s) | launches by batch " + json.dumps(vc["launches"])
+              + " | add/sub/neg, _norm, host syncs " + json.dumps(vc["field_ops"])
+              + f" | peak {vc['peak_bytes'] / 2**30:.3f} GiB", flush=True)
+    with phase("pairing"):
+        pr = path_run(pairing_run, dev, ("mont_mul",))
+        bp, bf, pc = pr["out"]["bench_pairing"], pr["out"]["bench_field_muls"], pr["out"]["count"]
+        print(f"pairing B = {PAIRING_B}: rows 0 and {PAIRING_B - 1} == host optimal-ate | "
+              f"{bp['seconds']:.4f} s per batch, {bp['pairings_per_s']:.2f} pairings/s (first "
+              f"{bp['first_s']:.3f} s) | peak {bp['peak_bytes'] / 2**30:.3f} GiB | launches by "
+              "batch " + json.dumps(pc["launches"]) + " | add/sub/neg, _norm, host syncs "
+              + json.dumps(pc["field_ops"]), flush=True)
+        print(f"field muls: {bf['muls_per_s']:.4e} Montgomery products/s ({bf['chain']} B1 "
+              f"launches over {bf['b']} Fq rows, {bf['seconds']:.5f} s; plain chain equal)",
+              flush=True)
+        print(f"entry(): Miller loop of G1 x {{1, 7}}, G2 x {{1, 11}} on the kernels == plain "
+              f"versions limb for limb ({pr['out']['entry_s']:.3f} s, plain "
+              f"{pr['out']['entry_plain_s']:.3f} s) | launches " + json.dumps(
+                  pr["out"]["entry_launches"]), flush=True)
+        print("pairing result: " + json.dumps(pr["out"]), flush=True)
+    with phase("pinocchio"):
+        pn = path_run(pinocchio_run, dev, tuple(counters()))
+        po = pn["out"]
+        require_all_launched(po["prove_count"]["launches"], "one Pinocchio prove")
+        print(f"pinocchio 2^{PINOCCHIO_LOG2_N}: the nine proof elements == trapdoor multiples, "
+              f"the device verifier accepts and rejects a wrong statement | crs "
+              f"{po['crs_s']:.3f} s | prove {po['prove_s']:.4f} s | verify_s "
+              f"{po['verify_s']:.4f} s (first {po['verify_first_s']:.3f} s) | peak prove "
+              f"{po['peak_bytes'] / 2**30:.2f} GiB, crs {po['crs_peak_bytes'] / 2**30:.2f} GiB",
+              flush=True)
+        for what in ("prove", "verify"):
+            c = po[f"{what}_count"]
+            print(f"pinocchio {what}: launches by batch " + json.dumps(c["launches"])
+                  + " | add/sub/neg, _norm, host syncs " + json.dumps(c["field_ops"])
+                  + f" | peak {c['peak_bytes'] / 2**30:.3f} GiB", flush=True)
+        print("pinocchio result: " + json.dumps(po), flush=True)
+    by_path = {"msm_2^20": launches, "groth16_2^16": g16_launches,
+               f"pairing_{PAIRING_B}": pr["launches"],
+               f"pinocchio_2^{PINOCCHIO_LOG2_N}": pn["launches"]}
+    # launches at each timed shape, by path, from the instrumented runs
+    shape_counts = {"groth16_prove": g16["launches_per_prove"],
+                    "groth16_verify": g16["verify_count"]["launches"],
+                    f"pairing_{PAIRING_B}": pc["launches"],
+                    "pinocchio_prove": po["prove_count"]["launches"],
+                    "pinocchio_verify": po["verify_count"]["launches"]}
     kernels = []
     for name, source, replaces, _ in KERNELS:
         s = stats[name]
+        for t in s["timings"]:
+            if "count_key" in t:
+                t["launches_on_path"] = {path: c.get(t["entry"], {}).get(t["count_key"], 0)
+                                         for path, c in shape_counts.items()}
         first = s["timings"][0]
         u = usage[first.get("entry", name)].get(12, {})
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name] + g16_launches[name],
-            "launches_by_path": {"msm_2^20": launches[name], "groth16_2^16": g16_launches[name]},
+            "launches": sum(p[name] for p in by_path.values()),
+            "launches_by_path": {path: p[name] for path, p in by_path.items()},
+            "launches_by_sub_path": {path: sum(v for e, per in c.items()
+                                               if _build.ENTRIES.get(e, e) == name
+                                               for v in per.values())
+                                     for path, c in shape_counts.items()},
             "max_abs_err": s["max_abs_err"],
             "mismatches": s["mismatches"], "batch": first["batch"], "ms": first["ms"],
             "device_ms": first["device_ms"], "host_us": first["host_us"],

@@ -11,7 +11,13 @@ tests/test_groth16_device.py:
 - a prove on crs_from_jax of the JAX package's CRS equals the prove on the
   port's own CRS;
 - synthetic_r1cs, matrices_from_jax, the CRS's point modes and the entry
-  points' default device.
+  points' default device;
+- the device verifier (DeviceGroth16Verifier, the batched pairing product)
+  on the JAX package's CRS (crs_from_jax) agrees with the JAX package's
+  host_oracle_verify: it accepts the proof and rejects a tampered
+  statement;
+- save_crs / load_crs: a CRS saved by either package loads in the other
+  with equal limbs, and a loaded CRS verifies the proof.
 
 Tolerance: exact equality.
 """
@@ -21,6 +27,8 @@ from __future__ import annotations
 import numpy as np
 import pytest
 import torch
+
+import jax.numpy as jnp
 
 from zk_toolkit_tpu.curves.bls12_381 import params
 from zk_toolkit_tpu.protocols import groth16_device as JGD
@@ -34,6 +42,7 @@ from zk_toolkit_tpu_torch.ops import limbs as TL
 from zk_toolkit_tpu_torch.protocols import groth16_device as TGD
 from zk_toolkit_tpu_torch.snark import term as TT
 from zk_toolkit_tpu_torch.snark.synthetic import synthetic_r1cs as t_synthetic_r1cs
+from zk_toolkit_tpu_torch.utils import serialize as TS
 
 R, Q = params.R, params.Q
 EXPR = "(x * x * x) + x + 5 == 35"
@@ -195,3 +204,75 @@ def test_entry_points_default_to_the_card():
         TGD.DeviceGroth16Prover(mat, _witness_map(TT, TP.SUBGROUP))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TB.bench_groth16(log2_n=1)
+
+
+def _jax_affine(aff) -> tuple:
+    """An affine (x, y, inf) tuple of the port as the JAX package's arrays."""
+    return tuple(jnp.asarray(t.numpy() if t.dtype == torch.bool else convert.limbs_to_jax(t))
+                 for t in aff)
+
+
+@pytest.mark.parametrize("tamper", [False, True], ids=["statement", "tampered"])
+def test_device_verifier_agrees_with_jax_host_oracle(flagship, tamper):
+    mat = convert.matrices_from_jax(flagship["jmat"], flagship["mat"].tmpl, "cpu")
+    crs = convert.crs_from_jax(flagship["jcrs"], mat, "cpu")
+    proof, stmt = flagship["proof"], flagship["prover"].statement()
+    if tamper:
+        stmt = TB.tampered(stmt)
+    got = TGD.DeviceGroth16Verifier().verify(proof, crs, stmt)
+    jproof = JGD.DeviceProof(a=_jax_affine(proof.a), b=_jax_affine(proof.b),
+                             c=_jax_affine(proof.c))
+    assert got is (not tamper)
+    assert got == JGD.host_oracle_verify(flagship["jcrs"], jproof, stmt)
+
+
+def test_crs_saved_by_jax_loads_in_the_port(flagship, tmp_path):
+    from zk_toolkit_tpu.utils.serialize import save_crs as j_save_crs
+
+    path = str(tmp_path / "crs.npz")
+    j_save_crs(path, flagship["jcrs"])
+    crs = TS.load_crs(path, flagship["mat"], device="cpu")
+    assert crs.mat is flagship["mat"]
+    for name in convert.CRS_POINTS:
+        for got, want in zip(getattr(crs, name), getattr(flagship["jcrs"], name)):
+            assert got.dtype == torch.int32
+            np.testing.assert_array_equal(convert.limbs_to_jax(got), np.asarray(want))
+
+
+def test_crs_saved_by_the_port_loads_in_jax(flagship, tmp_path):
+    from zk_toolkit_tpu.utils.serialize import load_crs as j_load_crs
+
+    path = str(tmp_path / "crs.npz")
+    TS.save_crs(path, flagship["crs"])
+    assert sorted(np.load(path).files) == sorted(
+        f"{name}.{i}" for name in convert.CRS_POINTS for i in range(3))
+    jcrs = j_load_crs(path, flagship["jmat"])
+    for name in convert.CRS_POINTS:
+        for got, want in zip(getattr(jcrs, name), getattr(flagship["crs"], name)):
+            assert np.asarray(got).dtype == np.uint32
+            np.testing.assert_array_equal(np.asarray(got), convert.limbs_to_jax(want))
+
+
+def test_loaded_crs_verifies(flagship, tmp_path):
+    path = str(tmp_path / "crs.npz")
+    TS.save_crs(path, flagship["crs"])
+    crs = TS.load_crs(path, flagship["mat"], device="cpu")
+    for name in convert.CRS_POINTS:
+        assert all(torch.equal(g, w) for g, w in zip(getattr(crs, name),
+                                                     getattr(flagship["crs"], name)))
+    assert TGD.DeviceGroth16Verifier().verify(flagship["proof"], crs,
+                                              flagship["prover"].statement())
+    with pytest.raises(ValueError, match="limb values"):
+        bad = dict(np.load(path))
+        bad["g1_xt.0"] = bad["g1_xt.0"] | (1 << 16)
+        np.savez(path, **bad)
+        TS.load_crs(path, flagship["mat"], device="cpu")
+
+
+def test_load_crs_defaults_to_the_card(flagship, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    path = str(tmp_path / "crs.npz")
+    TS.save_crs(path, flagship["crs"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TS.load_crs(path, flagship["mat"])

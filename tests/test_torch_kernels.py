@@ -6,8 +6,10 @@ PyTorch version on the same inputs on the card, bit for bit (tolerance 0:
 integer arithmetic), at batches that are not a multiple of the block size
 (1, 255, 257, 513, 1025), on the corner residues and on every case class
 of the complete addition; then the MSM through the kernels against the
-plain MSM and the host oracle. This file imports no JAX, so it runs on a
-machine that has none:
+plain MSM and the host oracle; then the pairing path: Fq12 products,
+inverses and Frobenius maps at the verify's and bench_pairing's stacks,
+pairing_e against the host optimal-ate, and the Groth16 verify. This file
+imports no JAX, so it runs on a machine that has none:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
@@ -324,3 +326,73 @@ def test_groth16_flagship_on_card_matches_trapdoor(card):
              CK.point_double_fused.launches]
     assert all(a > b for a, b in zip(after, counts))
     assert B.proof_affine(proof) == B.trapdoor_proof(mat, prover.wires, 4242, 5353, **trapdoor)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead", [(1, 4), (256,)], ids=["verify_1x4", "pairing_256"])
+def test_fq12_stack_on_card_matches_plain(card, lead):
+    """Fq12 mul/sq/inv and frobenius on the card against the same ops over
+    the plain FqOps, at the verify's [1, 4] and bench_pairing's [256]
+    batches: an Fq12 product is one B1 launch over 54 stacked rows."""
+    from zk_toolkit_tpu_torch.ops import pairing_ops as P
+
+    spec = L.field_spec(params.Q)
+    rng = np.random.default_rng(sum(lead))
+    n = int(np.prod(lead))
+    a = S.random_field(rng, 12 * n, spec, card).view(lead + (2, 3, 2, spec.K))
+    b = S.random_field(rng, 12 * n, spec, card).view(lead + (2, 3, 2, spec.K))
+    a.view(-1, 12, spec.K)[0] = 0
+    po, plain = P.bls_pairing_ops(), P.bls_pairing_ops(plain=True)
+    launches = []
+    before = L._mont_mul_fused.launches
+    got = po.e12.mul(a, b)
+    launches.append(L._mont_mul_fused.launches - before)
+    _equal((got, po.e12.sq(a), po.e12.inv(a)),
+           (plain.e12.mul(a, b), plain.e12.sq(a), plain.e12.inv(a)))
+    for q in (1, 2, 3):
+        _equal((po.frobenius(a, q),), (plain.frobenius(a, q),))
+    assert launches == [1]
+
+
+@pytest.mark.cuda
+def test_pairing_e_on_card_matches_host(card):
+    from zk_toolkit_tpu_torch.curves.bls12_381 import g1, g2
+    from zk_toolkit_tpu_torch.curves.bls12_381.optimal_ate import OptimalAtePairing
+    from zk_toolkit_tpu_torch.ops import pairing_ops as P
+    from zk_toolkit_tpu_torch.ops.tower_ops import unpack_fq12
+
+    ops = P.bls_pairing_ops()
+    spec = ops.f.spec
+    ps = [g1.g(), g1.g() * 7, g1.g() * 123456789, g1.infinity()]
+    qs = [g2.g(), g2.g() * 11, g2.g() * 987654321, g2.g()]
+    got = unpack_fq12(P.pairing_e(ops, P.pack_g1_affine(ps, spec, card),
+                                  P.pack_g2_affine(qs, spec, card)), spec)
+    pair = OptimalAtePairing()
+    assert got == [pair.e(p, q).e for p, q in zip(ps, qs)]
+
+
+@pytest.mark.cuda
+def test_groth16_verify_on_card_accepts_and_rejects(card):
+    """The flagship proof verified on the card: accepted, a tampered
+    statement rejected, and B1, B2, B3 all ran inside one verify."""
+    from zk_toolkit_tpu_torch import bench as B
+    from zk_toolkit_tpu_torch.protocols import groth16_device as GD
+    from zk_toolkit_tpu_torch.snark import term as T
+
+    f = params.SUBGROUP
+    wm = {T.One(): f.elem(1), T.Var("x"): f.elem(3), T.Out(): f.elem(35),
+          T.TmpVar(1): f.elem(9), T.TmpVar(2): f.elem(27), T.TmpVar(3): f.elem(8),
+          T.TmpVar(4): f.elem(35)}
+    trapdoor = dict(tau=12345, alpha=777, beta=888, gamma=999, delta=111213)
+    mat = GD.CircuitMatrices.from_expr("(x * x * x) + x + 5 == 35", device=card)
+    crs = GD.DeviceCRS.from_trapdoor(mat, point_mode="host", device=card, **trapdoor)
+    prover = GD.DeviceGroth16Prover(mat, wm, device=card)
+    proof = prover.prove_with_rs(crs, 4242, 5353)
+    verifier = GD.DeviceGroth16Verifier()
+    counts = [L._mont_mul_fused.launches, CK.point_add_fused.launches,
+              CK.point_double_fused.launches]
+    assert verifier.verify(proof, crs, prover.statement())
+    after = [L._mont_mul_fused.launches, CK.point_add_fused.launches,
+             CK.point_double_fused.launches]
+    assert all(a > b for a, b in zip(after, counts))
+    assert not verifier.verify(proof, crs, B.tampered(prover.statement()))

@@ -210,3 +210,115 @@ def test_pack_fq2_matches_jax_and_round_trips():
     got = TT.pack_fq2(txs, SPEC, device="cpu")
     np.testing.assert_array_equal(convert.limbs_to_jax(got), np.asarray(JTO.pack_fq2(jxs, JL.field_spec(Q))))
     assert [(x.u0.e, x.u1.e) for x in TT.unpack_fq2(got, SPEC)] == vals
+
+
+# -- Fq6 / Fq12 ----------------------------------------------------------------
+
+def _tower_rows(rng, n, struct):
+    """n random elements with `struct` Fq slots, then zero and one, as uint32
+    [n + 2, *struct, K] Montgomery limbs."""
+    slots = int(np.prod(struct))
+    vals = [int.from_bytes(rng.bytes(48), "little") % Q for _ in range(n * slots)]
+    vals += [0] * slots + [1] + [0] * (slots - 1)
+    flat = ints_to_array([v * SPEC.r_mod_p % Q for v in vals], SPEC.K)
+    return flat.reshape((n + 2,) + struct + (SPEC.K,))
+
+
+TOWER_OPS = {6: ("mul", "sq", "inv", "mul_by_w", "mul_fq2"), 12: ("mul", "sq", "inv", "conjugate")}
+
+
+@pytest.fixture(scope="module")
+def tower_cases():
+    """Per level (6, 12): the inputs and the JAX package's results of every
+    op in TOWER_OPS, from one jitted function per level."""
+    import jax
+
+    from zk_toolkit_tpu.ops.tower_ops import make_tower as j_make_tower
+
+    _, _, j6, j12 = j_make_tower(Q)
+    rng = np.random.default_rng(66)
+    out = {}
+    for level, struct, jops in ((6, (3, 2), j6), (12, (2, 3, 2), j12)):
+        a, b = _tower_rows(rng, 4, struct), _tower_rows(rng, 4, struct)[::-1].copy()
+        s = _pack(_fq2_rows(rng, 3)[:a.shape[0]])
+
+        def run(a, b, s, jops=jops, level=level):
+            res = {"mul": jops.mul(a, b), "sq": jops.sq(a), "inv": jops.inv(a)}
+            if level == 6:
+                res.update(mul_by_w=jops.mul_by_w(a), mul_fq2=jops.mul_fq2(a, s))
+            else:
+                res["conjugate"] = jops.conjugate(a)
+            return res
+
+        want = jax.jit(run)(jnp.asarray(a), jnp.asarray(b), jnp.asarray(s))
+        out[level] = (a, b, s, {k: np.asarray(v) for k, v in want.items()})
+    return out
+
+
+@pytest.mark.parametrize("level,op", [(lv, op) for lv, ops in TOWER_OPS.items() for op in ops])
+def test_fq6_fq12_ops_match_jax(tower_cases, level, op):
+    a, b, s, want = tower_cases[level]
+    _, _, e6, e12 = TT.make_tower(Q)
+    ops = e6 if level == 6 else e12
+    ta, tb, ts = (convert.limbs_from_jax(x, "cpu") for x in (a, b, s))
+    got = {"mul": lambda: ops.mul(ta, tb), "sq": lambda: ops.sq(ta), "inv": lambda: ops.inv(ta),
+           "mul_by_w": lambda: ops.mul_by_w(ta), "mul_fq2": lambda: ops.mul_fq2(ta, ts),
+           "conjugate": lambda: ops.conjugate(ta)}[op]()
+    np.testing.assert_array_equal(convert.limbs_to_jax(got), want[op])
+
+
+def test_fq12_ops_match_host_tower():
+    from zk_toolkit_tpu_torch.curves.bls12_381.tower import Fq12
+
+    rng = np.random.default_rng(12)
+    a = convert.limbs_from_jax(_tower_rows(rng, 2, (2, 3, 2)), "cpu")
+    b = convert.limbs_from_jax(_tower_rows(rng, 2, (2, 3, 2))[::-1].copy(), "cpu")
+    _, _, _, e12 = TT.make_tower(Q)
+    xs, ys = TT.unpack_fq12(a, SPEC), TT.unpack_fq12(b, SPEC)
+    assert TT.unpack_fq12(e12.mul(a, b), SPEC) == [x * y for x, y in zip(xs, ys)]
+    assert TT.unpack_fq12(e12.inv(a), SPEC) == [Fq12.zero() if x.is_zero() else x.inv() for x in xs]
+    assert TT.unpack_fq12(e12.conjugate(a), SPEC) == [x.conjugate() for x in xs]
+    one = e12.one_like(a)
+    assert TT.unpack_fq12(one, SPEC) == [Fq12.one()] * 4
+    assert TT.unpack_fq12(e12.const(5, a[:1]), SPEC) == [Fq12.from_int(5)]
+    assert e12.equal(a, one).tolist() == [False, False, False, True]
+    assert e12.is_zero(a).tolist() == [False, False, True, False]
+    mask = torch.tensor([True, False, True, False])
+    assert torch.equal(e12.select(mask, a, one)[1], one[1])
+
+
+def test_pack_fq6_fq12_match_jax_and_round_trip():
+    from zk_toolkit_tpu.curves.bls12_381 import tower as JTw
+    from zk_toolkit_tpu.ops import tower_ops as JTO
+    from zk_toolkit_tpu_torch.curves.bls12_381 import tower as TTw
+
+    rng = np.random.default_rng(13)
+    vals = [int.from_bytes(rng.bytes(48), "little") % Q for _ in range(24)]
+
+    def fq12(tw, v):
+        f2 = [tw.Fq2(tw.fq1(v[i + 1]), tw.fq1(v[i])) for i in range(0, 12, 2)]
+        return tw.Fq12(tw.Fq6(f2[5], f2[4], f2[3]), tw.Fq6(f2[2], f2[1], f2[0]))
+
+    jxs = [fq12(JTw, vals[:12]), fq12(JTw, vals[12:])]
+    txs = [fq12(TTw, vals[:12]), fq12(TTw, vals[12:])]
+    jspec = JL.field_spec(Q)
+    got12 = TT.pack_fq12(txs, SPEC, device="cpu")
+    np.testing.assert_array_equal(convert.limbs_to_jax(got12),
+                                  np.asarray(JTO.pack_fq12(jxs, jspec)))
+    got6 = TT.pack_fq6([x.w1 for x in txs], SPEC, device="cpu")
+    np.testing.assert_array_equal(convert.limbs_to_jax(got6),
+                                  np.asarray(JTO.pack_fq6([x.w1 for x in jxs], jspec)))
+    assert TT.unpack_fq12(got12, SPEC) == txs
+    assert TT.unpack_fq6(got6, SPEC) == [x.w1 for x in txs]
+
+
+def test_fq2_mul_by_xi_conjugate_mul_fq1_match_host():
+    rng = np.random.default_rng(14)
+    vals = _fq2_rows(rng, 4)
+    t = convert.limbs_from_jax(_pack(vals), "cpu")
+    s_vals = [int(rng.integers(1, 1 << 62)) ** 5 % Q for _ in vals]
+    s = convert.limbs_from_jax(ints_to_array([v * SPEC.r_mod_p % Q for v in s_vals], SPEC.K), "cpu")
+    assert _unpack(E2.mul_by_xi(t)) == [F2.mul(x, (1, 1)) for x in vals]
+    assert _unpack(E2.conjugate(t)) == [(x[0], (Q - x[1]) % Q) for x in vals]
+    assert _unpack(E2.mul_fq1(t, s)) == [F2.mul(x, (k, 0)) for x, k in zip(vals, s_vals)]
+    assert _unpack(E2.const(7, t)) == [(7, 0)] * len(vals)

@@ -1,7 +1,8 @@
 """BLS12-381 parameters: base field modulus Q, subgroup order R, the field
-objects of the host tier, and the G1 and G2 generators as plain ints
-(E: y^2 = x^3 + 4 over Fq, E': y^2 = x^3 + 4(1 + u) over Fq2). The same
-values as zk_toolkit_tpu/curves/bls12_381/{params,g1,g2}.py."""
+objects of the host tier, the BLS parameter x, and the G1 and G2
+generators as plain ints (E: y^2 = x^3 + 4 over Fq, E': y^2 = x^3 +
+4(1 + u) over Fq2). The same values as
+zk_toolkit_tpu/curves/bls12_381/{params,g1,g2}.py."""
 
 from zk_toolkit_tpu_torch.fields.prime_field import PrimeField
 
@@ -16,6 +17,11 @@ Q = int(
 R = int("73eda753299d7d483339d80809a1d80553bda402fffe5bfeffffffff00000001", 16)
 
 EMBEDDING_DEGREE = 12
+
+#: BLS parameter x (the curve was generated from x = -0xd201000000010000);
+#: the optimal-ate Miller loop and final exponentiation run over |x|.
+BLS_X = 0xD201000000010000
+BLS_X_IS_NEGATIVE = True
 
 BASE_PRIME_FIELD = PrimeField(Q)
 SUBGROUP = PrimeField(R)

@@ -134,6 +134,34 @@ def _point_add_formula(ops, p, q):
     return out
 
 
+def point_add_mixed(ops, p, q_affine):
+    """madd-2007-bl: add an affine (z = 1) point, a formula over `ops` on
+    every device (the Miller loop's add step runs it over Fq2Ops).
+    `q_affine` is (x2, y2, inf_mask) with inf_mask bool[...batch]."""
+    x1, y1, z1 = p
+    x2, y2, q_inf = q_affine
+    z1z1 = ops.sq(z1)
+    u2, a = ops.mul(_s(x2, y2), _s(z1z1, z1))
+    s2 = ops.mul(a, z1z1)
+    h = ops.sub(u2, x1)
+    r = ops.dbl(ops.sub(s2, y1))
+    i, rr = ops.sq(_s(ops.dbl(h), r))
+    j, v = ops.mul(_s(h, x1), _s(i, i))
+    x3 = ops.sub(ops.sub(rr, j), ops.dbl(v))
+    t1, t2, z3h = ops.mul(_s(r, y1, h), _s(ops.sub(v, x3), j, z1))
+    y3 = ops.sub(t1, ops.dbl(t2))
+    z3 = ops.dbl(z3h)
+    out = (x3, y3, z3)
+
+    same_x = ops.is_zero(h)
+    same_y = ops.is_zero(r)
+    out = select_point(ops, same_x & same_y, point_double(ops, p), out)
+    one = ops.one_like(x2)
+    out = select_point(ops, is_infinity(ops, p), (x2, y2, one), out)
+    out = select_point(ops, q_inf, p, out)
+    return out
+
+
 def pad_to_pow2(ops, p, scalars=None):
     """Pad leading axis with infinity points (and zero scalars) to a power
     of two."""

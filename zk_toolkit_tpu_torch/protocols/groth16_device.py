@@ -1,13 +1,16 @@
-"""Device Groth16 prover on BLS12-381 (the port of
-zk_toolkit_tpu/protocols/groth16_device.py, its prove half; the device
-verifier comes with the pairing).
+"""Device Groth16 on BLS12-381 (the port of
+zk_toolkit_tpu/protocols/groth16_device.py).
 
 The prove is three sparse mat-vecs over Fr -> the coset quotient chain of
 seven NTTs (ops/ntt.py) -> four G1 MSMs and one G2 MSM (ops/msm.py) ->
 randomizer scalar multiplications and point adds (ops/curve_ops.py) ->
-affine A, B, C. The QAP domain is H = <w_n>, n the constraint count padded
-to a power of two, so proofs check against the Groth16 equation, and with
-the trapdoor known, A, B, C are fixed multiples of the generators.
+affine A, B, C. The verify is one statement MSM, then the four pairings
+e(-A, B) e(alpha, beta) e(L, gamma) e(C, delta) as one batched Miller
+product with one shared final exponentiation (ops/pairing_ops.py), read
+back to the host once. The QAP domain is H = <w_n>, n the constraint
+count padded to a power of two, so proofs check against the Groth16
+equation, and with the trapdoor known, A, B, C are fixed multiples of the
+generators.
 
 On a card every Fr and Fq product runs on kernel B1, every G1 add and
 doubling on B2/B3; G2 runs the formulas over Fq2Ops. Entry points take
@@ -188,6 +191,26 @@ def _pack_fr_plain(xs, device) -> torch.Tensor:
     return C.pack_scalars([int(x) % R for x in xs], FR_BITS, device)
 
 
+def qap_at(mat: CircuitMatrices, x: int, w_root: int):
+    """(u_i(x), v_i(x), w_i(x) per wire, t(x)): the QAP's wire polynomials
+    over the domain of n_pad roots of unity (w_root the primitive one),
+    evaluated at x through the Lagrange basis
+    L_j(x) = (x^n - 1) w^j / (n (x - w^j)); host bigints, O(n)."""
+    n_pad = mat.n_pad
+    t_x = (pow(x, n_pad, R) - 1) % R
+    n_inv = pow(n_pad, -1, R)
+    lag, wj = [], 1
+    for _ in range(n_pad):
+        lag.append(t_x * wj % R * pow((x - wj) % R, -1, R) % R * n_inv % R)
+        wj = wj * w_root % R
+    u, v, w = ([0] * (mat.m + 1) for _ in range(3))
+    for j, cons in enumerate(mat.tmpl.constraints):
+        for acc, side in ((u, cons.a), (v, cons.b), (w, cons.c)):
+            for idx, coeff in side:
+                acc[idx] = (acc[idx] + coeff.e * lag[j]) % R
+    return u, v, w, t_x
+
+
 # -- CRS -------------------------------------------------------------------------
 
 @dataclasses.dataclass(eq=False)
@@ -236,23 +259,7 @@ class DeviceCRS:
             raise ValueError(f"point_mode must be 'table' or 'host', not {point_mode!r}")
         n_pad, m, l = mat.n_pad, mat.m, mat.l
         w_root = NTT.fr_domain(n_pad, dev).w
-        # Lagrange-basis values over H at tau (host bigints, O(n)):
-        # L_j(tau) = (tau^n - 1) * w^j / (n * (tau - w^j)).
-        t_tau = (pow(tau, n_pad, R) - 1) % R
-        n_inv = pow(n_pad, -1, R)
-        lag = []
-        wj = 1
-        for _ in range(n_pad):
-            lag.append(t_tau * wj % R * pow((tau - wj) % R, -1, R) % R * n_inv % R)
-            wj = wj * w_root % R
-        # u_i(tau), v_i(tau), w_i(tau) per wire column (host sparse sums).
-        u = [0] * (m + 1)
-        v = [0] * (m + 1)
-        w = [0] * (m + 1)
-        for j, cons in enumerate(mat.tmpl.constraints):
-            for acc, side in ((u, cons.a), (v, cons.b), (w, cons.c)):
-                for idx, coeff in side:
-                    acc[idx] = (acc[idx] + coeff.e * lag[j]) % R
+        u, v, w, t_tau = qap_at(mat, tau, w_root)
         gamma_inv = pow(gamma, -1, R)
         delta_inv = pow(delta, -1, R)
         uvw = [(beta * u[i] + alpha * v[i] + w[i]) % R for i in range(m + 1)]
@@ -477,3 +484,39 @@ def host_oracle_verify(crs: DeviceCRS, proof: DeviceProof, statement) -> bool:
         * pr.tate(g1_obj_affine(proof.c), g2_obj_jac(crs.g2_delta))
     )
     return lhs == rhs
+
+
+# -- verifier --------------------------------------------------------------------
+
+def verify_core(crs: DeviceCRS, proof_a, proof_b, proof_c, stmt_plain):
+    """The verify body: tensors in, bool [1] on the device out. The
+    statement MSM runs on B2/B3, the pairing product's products on B1."""
+    fq = _fq_ops()
+    po = PO.bls_pairing_ops()
+    L_pt = MSM.msm_pippenger(fq, crs.g1_uvw_stmt, stmt_plain, FR_BITS)
+
+    ax, ay, ainf = proof_a
+    neg_a = (ax, fq.neg(ay), ainf)
+    alpha_aff = C.to_affine(fq, crs.g1_alpha)
+    l_aff = C.to_affine(fq, tuple(x[None] for x in L_pt))
+    beta_aff = _g2_to_affine(crs.g2_beta)
+    gamma_aff = _g2_to_affine(crs.g2_gamma)
+    delta_aff = _g2_to_affine(crs.g2_delta)
+
+    def cat(parts):
+        return tuple(torch.cat([p[i] for p in parts])[None] for i in range(3))
+
+    p_b = cat([neg_a, alpha_aff, l_aff, proof_c])
+    q_b = cat([proof_b, beta_aff, gamma_aff, delta_aff])
+    return PO.pairing_product_is_one(po, p_b, q_b)
+
+
+class DeviceGroth16Verifier:
+    """e(A, B) == e(alpha, beta) * e(L_stmt, gamma) * e(C, delta), checked
+    as one batched Miller product e(-A,B) e(alpha,beta) e(L,gamma) e(C,delta)
+    == 1 with a single shared final exponentiation, on the CRS's device."""
+
+    def verify(self, proof: DeviceProof, crs: DeviceCRS, statement: list[int]) -> bool:
+        stmt_plain = _pack_fr_plain(statement, crs.g1_alpha[0].device)
+        ok = verify_core(crs, proof.a, proof.b, proof.c, stmt_plain)
+        return bool(ok[0])
