@@ -12,22 +12,29 @@ B2 and B3 each launched inside one prove and inside one verify), the
 batched optimal-ate pairing (phase `pairing`: bench_pairing at B = 256
 against the host optimal-ate, bench_field_muls, entry()'s Miller loop on
 the kernels equal limb for limb to the same loop on the plain versions),
-and Pinocchio at 2^16 constraints (phase `pinocchio`: bench_pinocchio, the
+Pinocchio at 2^16 constraints (phase `pinocchio`: bench_pinocchio, the
 nine proof elements equal to their trapdoor multiples, the device verifier
 accepting and rejecting a wrong statement, B1, B2 and B3 each launched
-inside one prove), and prints:
+inside one prove), and the secp256k1 tier at K = 16 (phase `secp256k1`:
+bench_ipa at 2^10 accepting the true statement and rejecting P + G,
+bench_range_proof at 64 bits accepting v < 2^64 and rejecting a flipped
+bit, bench_ecdsa at 4096 signatures verifying every row, rejecting the bad
+rows and matching the host's (r, s); B1, B2 and B3 each launched inside one
+IPA and inside one ECDSA verify), and prints:
 
   phase lines, each with its seconds;
   the prove's seconds, stage split, launches by kernel and batch, peak
     memory and the NTT's B1 / add-sub split; for the Groth16 verify, the
     pairing batch and the Pinocchio prove and verify: seconds, launches by
     kernel and batch, plain add/sub/neg calls, _norm calls and host syncs
-    (count_path), peak memory;
+    (count_path), peak memory; the same for the IPA, the range proof and
+    the ECDSA verify, with keygen, sign and verify seconds;
   a `kernels` JSON line: per kernel its route, source, the TPU kernel it
     replaces, launches over the MSM run and the prove run together (and by
     path in `launches_by_path`), the largest limb difference from
     its plain version (tolerance 0: integer arithmetic), its registers and
-    spills at K = 24 (ptxas, every entry of its library), and at a shape
+    spills at K = 24 and K = 16 (ptxas, every entry of its library; the
+    build phase refuses either with stack or spill), and at a shape
     the main path gives it its time per call (`ms`), its device time per
     launch (`device_ms`), its plain version's time and its bound; `timings`
     adds further shapes: for B1 the inverse as one product launch per step
@@ -40,7 +47,10 @@ inside one prove), and prints:
     and 3 points at r = 1 (scalar_mul); and the pairing's: B1 at the Fq12
     product stack of the Groth16 verify (54 x 4 rows) and of bench_pairing
     (54 x 256 rows), and B1's chain at the 256 rows of bench_pairing's Fq12
-    inverse; each timing entry carries its launches on each path;
+    inverse; and the secp256k1 tier's at K = 16: B2 and B3 on the 2048
+    points of the first IPA fold and on one point (_single_mul), B1's
+    product and chain mod n at the 4096 rows of bench_ecdsa; each timing
+    entry carries its launches on each path;
   the card's name and power limit as nvidia-smi prints them;
   last, {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -70,7 +80,8 @@ HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 67e12 / 4
 
 # Odd sizes around the launch grid, plus every batch the kernels are timed
-# at (1, 32, 8192, 2^16).
+# at (1, 32, 8192, 2^16). B2 and B3 at K = 16 are held at them on
+# secp256k1 too.
 BATCHES = (1, 32, 255, 257, 513, 1025, 8192, 1 << 16)
 # B3's doubling counts held against r plain doublings: one, two, and the
 # c = 8 of the Horner combine and the fixed-base table.
@@ -104,12 +115,21 @@ UPSWEEP_PAIRS = 1 << 22
 FQ12_STACKS = ((1, 4), (256,))
 PAIRING_B = 256
 PINOCCHIO_LOG2_N = 16
+# The secp256k1 tier: the IPA at bench.py:bench_ipa's 2^10, the 64-bit
+# range proof, ECDSA over 4096 signatures; the first IPA fold's scalar_mul
+# covers 2 x 2^10 points.
+IPA_LOG2_N = 10
+RANGE_BITS = 64
+ECDSA_B = 4096
+IPA_FOLD_POINTS = 2 << IPA_LOG2_N
 # Each phase's limit is at least twice the longest time measured for it on
-# an H100 (build 24, parity 72, slice 7.7, pairing 70.4, pinocchio 213.4 s;
-# groth16 167 s, a run of 186.9 s less the one prove it no longer makes);
-# the sum stays at 1150 s, inside the script's 1200 s.
-PHASE_LIMIT_S = {"build": 50, "parity": 155, "slice": 17, "groth16": 345, "pairing": 150,
-                 "pinocchio": 433}
+# an H100: build 24, parity 79.4, slice 8.6, groth16 189.9, pairing 67.4
+# (counting on bench_pairing's first batch), pinocchio 217.7, secp256k1
+# 18.8 s. The sum, 1215 s, is above the script's 1200 s: on the slowest
+# host seen the script takes about 600 s, and no smaller depth shrinks these
+# phases (they are host-bound on per-call counts that do not depend on n).
+PHASE_LIMIT_S = {"build": 48, "parity": 160, "slice": 18, "groth16": 380, "pairing": 135,
+                 "pinocchio": 436, "secp256k1": 38}
 
 
 class PhaseTimeout(Exception):
@@ -170,6 +190,7 @@ TIMING_BATCH = {name: batch for name, _, _, batch in KERNELS}
 
 
 SECP256K1_P = 0xFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFEFFFFFC2F
+SECP256K1_N = 0xFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFEBAAEDCE6AF48A03BBFD25E8CD0364141
 
 
 def bound_ms(n_bytes: float, n_imad: float):
@@ -188,7 +209,8 @@ def imad(k: int, muls: int, squares: int) -> int:
     return muls * 4 * n * n + squares * (n * (n + 1) + 2 * n * n)
 
 
-def timed(fn, plain, reps: int, plain_reps: int, n_bytes: float, n_imad: float, **shape):
+def timed(fn, plain, reps: int, plain_reps: int, n_bytes: float, n_imad: float,
+          plain_warm: int = 1, **shape):
     """One timing entry: time per call, device time per launch, host us per
     call, the plain version's time and the bound."""
     from zk_toolkit_tpu_torch.utils.profiling import cuda_ms, device_ms
@@ -196,8 +218,31 @@ def timed(fn, plain, reps: int, plain_reps: int, n_bytes: float, n_imad: float, 
     dev_ms, host_us = device_ms(fn, reps)
     b_ms, b_by = bound_ms(n_bytes, n_imad)
     return dict(shape, ms=cuda_ms(fn, reps), device_ms=dev_ms, host_us=host_us,
-                plain_ms=cuda_ms(plain, plain_reps, warm=1) if plain else None,
+                plain_ms=cuda_ms(plain, plain_reps, warm=plain_warm) if plain else None,
                 bound_ms=b_ms, bound_by=b_by)
+
+
+# Pairs of an up-sweep level that the plain add is timed on: its first
+# 2^20 (the formula's int64 and float64 temporaries take about 15 GB there
+# at K = 24; a whole level would take seconds per call).
+PLAIN_PAIRS = 1 << 20
+
+
+def plain_add_head(plain, ev, od):
+    """A function that runs the plain add over the first PLAIN_PAIRS pairs
+    of (ev, od)."""
+    from zk_toolkit_tpu_torch.ops import curve_ops as C
+
+    head_ev, head_od = (tuple(c[:PLAIN_PAIRS] for c in v) for v in (ev, od))
+    return lambda: C._point_add_formula(plain, head_ev, head_od)
+
+
+def _record(res: dict, name: str, got, want) -> None:
+    """Adds got's mismatching rows and largest limb error against want to
+    res[name]."""
+    rows, err = diff_stats(got, want)
+    res[name]["mismatches"] += rows
+    res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
 
 
 def parity_and_timing(dev) -> dict:
@@ -224,11 +269,7 @@ def parity_and_timing(dev) -> dict:
     k = fq.K
     plain = FqOps(fq, plain=True)
     res = {name: {"mismatches": 0, "max_abs_err": 0, "timings": []} for name, *_ in KERNELS}
-
-    def record(name, got, want):
-        rows, err = diff_stats(got, want)
-        res[name]["mismatches"] += rows
-        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+    record = functools.partial(_record, res)
 
     for n in BATCHES:
         for p in (params.Q, params.R, SECP256K1_P):
@@ -245,6 +286,26 @@ def parity_and_timing(dev) -> dict:
     print(f"parity batches {list(BATCHES)} (B2 also on up-sweep views, B3 at r in "
           f"{list(DOUBLINGS)}): " + ", ".join(
               f"{name} {v['mismatches']} mismatching rows" for name, v in res.items()), flush=True)
+
+    # B2 and B3 at K = 16 (their N = 8 build) on secp256k1 pairs: the same
+    # batches, views, doubling counts and case classes, from their own rng.
+    before = {name: res[name]["mismatches"] for name in ("point_add", "point_double")}
+    secp, rng16 = L.field_spec(SECP256K1_P), np.random.default_rng(2025)
+    plain16 = FqOps(secp, plain=True)
+    for n in BATCHES:
+        pp, qq = S.point_pairs(rng16, n, dev, curve="secp256k1")
+        want = C._point_add_formula(plain16, pp, qq)
+        record("point_add", CK.point_add_fused(pp, qq, secp), want)
+        record("point_add", CK.point_add_fused(*S.upsweep_views(pp, qq), secp), want)
+        for r in DOUBLINGS:
+            record("point_double", CK.point_double_n_fused(pp, secp, r),
+                   C.point_double_n(plain16, pp, r))
+        torch.cuda.synchronize()
+    print(f"parity at K = 16 on secp256k1, batches {list(BATCHES)} (B2 also on up-sweep views, "
+          f"B3 at r in {list(DOUBLINGS)}): " + ", ".join(
+              f"{name} {res[name]['mismatches'] - b} mismatching rows"
+              for name, b in before.items()),
+          flush=True)
 
     long_exp = (1,) + tuple(int(b) for b in rng.integers(0, 2, 401))
     before = res["mont_mul"]["mismatches"]
@@ -404,9 +465,10 @@ def parity_and_timing(dev) -> dict:
            tuple(w.expand(tiles, n, k) for w in want))
     del got
     res["point_add"]["timings"].append(timed(
-        lambda: CK.point_add_fused(ev, od, fq), None, 5, 0,
-        UPSWEEP_PAIRS * 9 * word, tiles * finite * imad(k, 12, 4),
-        batch=UPSWEEP_PAIRS, layout="up-sweep even/odd views of [2^23, 3K]"))
+        lambda: CK.point_add_fused(ev, od, fq), plain_add_head(plain, ev, od), 5, 1,
+        UPSWEEP_PAIRS * 9 * word, tiles * finite * imad(k, 12, 4), plain_warm=0,
+        batch=UPSWEEP_PAIRS, layout="up-sweep even/odd views of [2^23, 3K]",
+        plain_batch=PLAIN_PAIRS))
     del ev, od
     # The first up-sweep level of the prove's 2^17-point G1 MSMs.
     tiles = UPSWEEP_PAIRS_G16 // n
@@ -416,10 +478,14 @@ def parity_and_timing(dev) -> dict:
            tuple(w.expand(tiles, n, k) for w in want))
     del got
     res["point_add"]["timings"].append(timed(
-        lambda: CK.point_add_fused(ev, od, fq), None, 10, 0,
-        UPSWEEP_PAIRS_G16 * 9 * word, tiles * finite * imad(k, 12, 4),
-        batch=UPSWEEP_PAIRS_G16, layout="up-sweep even/odd views of [2^22, 3K]"))
+        lambda: CK.point_add_fused(ev, od, fq), plain_add_head(plain, ev, od), 10, 1,
+        UPSWEEP_PAIRS_G16 * 9 * word, tiles * finite * imad(k, 12, 4), plain_warm=0,
+        batch=UPSWEEP_PAIRS_G16, layout="up-sweep even/odd views of [2^22, 3K]",
+        plain_batch=PLAIN_PAIRS))
     del ev, od
+    # The plain adds' temporaries go back to the card, so the MSMs after this
+    # phase size their window groups from the same free memory as before.
+    torch.cuda.empty_cache()
     # scalar_mul's batches: the three randomizers of delta, then one point.
     for rows in (3, 1):
         p1, q1 = tuple(c[:rows] for c in pp), tuple(c[:rows] for c in qq)
@@ -437,18 +503,95 @@ def parity_and_timing(dev) -> dict:
     return res
 
 
+def secp256k1_timing(dev, res: dict) -> None:
+    """B1, B2 and B3 at K = 16 at the secp256k1 tier's shapes, each held
+    against its plain version (into res, as parity_and_timing) and timed,
+    the entries appended to res[name]["timings"]: B2 and B3 (r = 1) on the
+    2048 points of the first IPA fold's scalar_mul and on one point (a
+    `_single_mul` step); B1's product mod n at bench_ecdsa's 4096 rows and
+    its chain (mont_inv mod n, one launch) there."""
+    from zk_toolkit_tpu_torch.ops import curve_kernels as CK
+    from zk_toolkit_tpu_torch.ops import curve_ops as C
+    from zk_toolkit_tpu_torch.ops import limbs as L
+    from zk_toolkit_tpu_torch.ops.field_ops import FqOps
+    from zk_toolkit_tpu_torch.utils import samples as S
+
+    record = functools.partial(_record, res)
+    rng = np.random.default_rng(2026)
+    fp, fn = L.field_spec(SECP256K1_P), L.field_spec(SECP256K1_N)
+    k = fp.K
+    word = 4 * k
+    plain = FqOps(fp, plain=True)
+    pp, qq = S.point_pairs(rng, IPA_FOLD_POINTS, dev, generic_only=True, curve="secp256k1")
+    for n, what in ((IPA_FOLD_POINTS, "the first IPA fold's scalar_mul step"),
+                    (1, "a _single_mul step")):
+        p1 = tuple(c[:n].contiguous() for c in pp)
+        q1 = tuple(c[:n].contiguous() for c in qq)
+        record("point_add", CK.point_add_fused(p1, q1, fp), C._point_add_formula(plain, p1, q1))
+        res["point_add"]["timings"].append(timed(
+            lambda: CK.point_add_fused(p1, q1, fp), lambda: C._point_add_formula(plain, p1, q1),
+            200, 3, n * 9 * word, n * imad(k, 12, 4), batch=n, K=k, entry="point_add",
+            count_key=f"K={k} {n}", what=f"secp256k1, {what}"))
+        record("point_double", CK.point_double_n_fused(p1, fp, 1), C.point_double_n(plain, p1, 1))
+        res["point_double"]["timings"].append(timed(
+            lambda: CK.point_double_n_fused(p1, fp, 1), lambda: C.point_double_n(plain, p1, 1),
+            200, 3, n * 6 * word, n * imad(k, 2, 5), batch=n, r=1, K=k, entry="point_double",
+            count_key=f"K={k} {n}", what=f"secp256k1, {what}"))
+    n = ECDSA_B
+    a, b = S.random_field(rng, n, fn, dev), S.random_field(rng, n, fn, dev)
+    record("mont_mul", (L._mont_mul_fused(a, b, fn),), (L.mont_mul_plain(a, b, fn),))
+    res["mont_mul"]["timings"].append(timed(
+        lambda: L._mont_mul_fused(a, b, fn), lambda: L.mont_mul_plain(a, b, fn), 200, 5,
+        n * 3 * word, n * imad(k, 1, 0), batch=n, K=k, entry="mont_mul", count_key=f"K={k} {n}",
+        what="product mod the secp256k1 order n (bench_ecdsa's rows)"))
+    bits = fn.p_minus_2_bits
+    record("mont_mul", (L.mont_inv(a, fn),), (L.mont_inv_plain(a, fn),))
+    res["mont_mul"]["timings"].append(timed(
+        lambda: L.mont_inv(a, fn), lambda: L.mont_inv_plain(a, fn), 20, 1,
+        n * 2 * word, n * imad(k, sum(bits), len(bits)), batch=n, K=k, entry="mont_pow",
+        count_key=f"K={k} {n} x r={len(bits)}",
+        what="mont_inv mod n, one chain launch (bench_ecdsa's k^-1 and s^-1)"))
+    torch.cuda.synchronize()
+
+
+def secp256k1_paths(dev) -> dict:
+    """bench_ipa at 2^IPA_LOG2_N, bench_range_proof at RANGE_BITS and
+    bench_ecdsa at ECDSA_B, each under path_run (so each path's launches
+    per kernel are its own) with its first IPA, range proof and verify
+    instrumented (count_path). Their refusals raise."""
+    from zk_toolkit_tpu_torch.bench import bench_ecdsa, bench_ipa, bench_range_proof
+
+    counts = {}
+    observe = observing(counts)
+
+    def ipa(d):
+        return bench_ipa(IPA_LOG2_N, d, observe=observe)
+
+    def range_proof(d):
+        return bench_range_proof(RANGE_BITS, d, observe=observe)
+
+    def ecdsa(d):
+        return bench_ecdsa(ECDSA_B, d, observe=observe)
+
+    out = {f"ipa_2^{IPA_LOG2_N}": path_run(ipa, dev, tuple(counters())),
+           f"range_{RANGE_BITS}": path_run(range_proof, dev, tuple(counters())),
+           f"ecdsa_{ECDSA_B}": path_run(ecdsa, dev, tuple(counters()))}
+    require_all_launched(counts["ipa"]["launches"], "one IPA")
+    require_all_launched(counts["verify"]["launches"], "one ECDSA verify")
+    out["counts"] = counts
+    return out
+
+
 def count_launches(fn) -> dict:
     """Kernel launches of fn(), by launcher entry and batch size, counted at
-    the launcher (B1's keys carry K: 16 for Fr, 24 for Fq)."""
+    the launcher; every key carries K (16 for Fr and secp256k1, 24 for Fq)."""
     from zk_toolkit_tpu_torch import _build
 
     seen: dict = {}
     launch = _build.launch
 
     def counting(name, spec, views, n, reps=1, words=()):
-        key = f"{n}" if reps == 1 else f"{n} x r={reps}"
-        if name.startswith("mont_"):
-            key = f"K={spec.K} {key}"
+        key = f"K={spec.K} {n}" if reps == 1 else f"K={spec.K} {n} x r={reps}"
         seen.setdefault(name, {}).setdefault(key, 0)
         seen[name][key] += 1
         return launch(name, spec, views, n, reps, words)
@@ -601,15 +744,15 @@ def groth16_run(dev) -> dict:
 
 def pairing_run(dev) -> dict:
     """bench_pairing at B = 256 (refused unless it equals the host
-    optimal-ate), bench_field_muls, entry()'s Miller loop on the kernels
-    against the same loop on the plain versions (limb for limb), and one
-    instrumented pairing batch (count_path)."""
+    optimal-ate; its untimed first batch instrumented, count_path),
+    bench_field_muls, and entry()'s Miller loop on the kernels against the
+    same loop on the plain versions (limb for limb)."""
     from zk_toolkit_tpu_torch.bench import bench_field_muls, bench_pairing
-    from zk_toolkit_tpu_torch.curves.bls12_381 import g1, g2
     from zk_toolkit_tpu_torch.entry import entry
     from zk_toolkit_tpu_torch.ops import pairing_ops as P
 
-    out = {"bench_pairing": bench_pairing(PAIRING_B, dev)}
+    counts = {}
+    out = {"bench_pairing": bench_pairing(PAIRING_B, dev, observe=observing(counts))}
     out["bench_field_muls"] = bench_field_muls(device=dev)
     fn, args = entry(dev)
     t0 = time.perf_counter()
@@ -626,13 +769,7 @@ def pairing_run(dev) -> dict:
                            f"versions: {rows} rows, max limb error {err}")
     out["entry_mismatches"] = 0
     out["entry_launches"] = count_launches(lambda: fn(*args))
-    ops = P.bls_pairing_ops()
-    spec = ops.f.spec
-    pa = tuple(a.expand((PAIRING_B,) + a.shape[1:]).contiguous()
-               for a in P.pack_g1_affine([g1.g() * 3], spec, dev))
-    qa = tuple(a.expand((PAIRING_B,) + a.shape[1:]).contiguous()
-               for a in P.pack_g2_affine([g2.g() * 5], spec, dev))
-    out["count"] = count_path(lambda: P.pairing_e(ops, pa, qa))
+    out["count"] = counts["pairing"]
     return out
 
 
@@ -729,11 +866,15 @@ def main() -> int:
         for entry, per_n in usage.items():
             for n_words, u in sorted(per_n.items()):
                 print(f"  ptxas {entry} K={2 * n_words}: " + json.dumps(u), flush=True)
-        spilled = {entry: usage[entry].get(12) for entry in usage
-                   if usage[entry].get(12, {}).get("registers") is None
-                   or usage[entry][12].get("stack_bytes", 0) or usage[entry][12].get("spill_bytes", 0)}
+        # N = 12 words (K = 24, BLS12-381 Fq) and N = 8 (K = 16: Fr, secp256k1)
+        spilled = {f"{entry} K={2 * n_words}": usage[entry].get(n_words)
+                   for entry in usage for n_words in (12, 8)
+                   if usage[entry].get(n_words, {}).get("registers") is None
+                   or usage[entry][n_words].get("stack_bytes", 0)
+                   or usage[entry][n_words].get("spill_bytes", 0)}
         if spilled:
-            raise RuntimeError(f"kernels at K = 24 use stack or spill (or no ptxas report): {spilled}")
+            raise RuntimeError("kernels at K = 24 or K = 16 use stack or spill (or no ptxas "
+                               f"report): {spilled}")
     with phase("parity"):
         stats = parity_and_timing(dev)
         bad = {k: v["mismatches"] for k, v in stats.items() if v["mismatches"] or v["max_abs_err"]}
@@ -766,7 +907,7 @@ def main() -> int:
         print("launches per 2^20 MSM by batch: " + json.dumps(per_msm), flush=True)
         # c = 8, W = 32: one r = 8 launch per Horner window, 7 for 255*T.
         b3 = per_msm.get("point_double", {})
-        if b3.get("1 x r=8") != 32 or sum(b3.values()) != 32 + 7:
+        if b3.get("K=24 1 x r=8") != 32 or sum(b3.values()) != 32 + 7:
             raise RuntimeError(f"B3 launches per MSM {b3}, expected 32 Horner (r = 8) + 7")
         print(f"B3 launches per 2^20 MSM: {sum(b3.values())} (32 Horner at r = 8, 7 for 255*T)",
               flush=True)
@@ -837,15 +978,47 @@ def main() -> int:
                   + " | add/sub/neg, _norm, host syncs " + json.dumps(c["field_ops"])
                   + f" | peak {c['peak_bytes'] / 2**30:.3f} GiB", flush=True)
         print("pinocchio result: " + json.dumps(po), flush=True)
+    with phase("secp256k1"):
+        sp = secp256k1_paths(dev)
+        sc = sp.pop("counts")
+        ipa, rp, ec = (sp[k]["out"] for k in sp)
+        print(f"ipa 2^{IPA_LOG2_N}: accepts the true statement, rejects P + G | ipa_s "
+              f"{ipa['ipa_s']:.4f} s (first {ipa['first_s']:.3f} s, setup {ipa['setup_s']:.3f} s)"
+              f" | peak {ipa['peak_bytes'] / 2**30:.3f} GiB", flush=True)
+        print(f"range proof {RANGE_BITS} bits (with the IPA): accepts v < 2^{RANGE_BITS}, rejects "
+              f"a flipped bit | range_s {rp['range_s']:.4f} s (first {rp['first_s']:.3f} s) | peak "
+              f"{rp['peak_bytes'] / 2**30:.3f} GiB", flush=True)
+        print(f"ecdsa B = {ECDSA_B}: every row verifies, rows {', '.join(ec['rejects_bad_rows'])} "
+              f"rejected, sampled (r, s) == host | keygen {ec['keygen_s']:.4f} s | sign_s "
+              f"{ec['sign_s']:.4f} s (first {ec['sign_first_s']:.3f} s, {ec['sign_per_s']:.1f} "
+              f"signatures/s) | verify_s {ec['verify_s']:.4f} s (first {ec['verify_first_s']:.3f} "
+              f"s, {ec['verify_per_s']:.1f} signatures/s) | peak {ec['peak_bytes'] / 2**30:.3f} "
+              "GiB", flush=True)
+        for what, c in (("ipa", sc["ipa"]), ("range proof", sc["range"]),
+                        ("ecdsa verify", sc["verify"])):
+            print(f"{what}: launches by batch " + json.dumps(c["launches"])
+                  + " | add/sub/neg, _norm, host syncs " + json.dumps(c["field_ops"])
+                  + f" | peak {c['peak_bytes'] / 2**30:.3f} GiB | instrumented run "
+                  f"{c['seconds_instrumented']:.2f} s", flush=True)
+        print("secp256k1 result: " + json.dumps({k: v["out"] for k, v in sp.items()}), flush=True)
+        secp256k1_timing(dev, stats)
+        print("secp256k1 kernel shapes (K = 16) == plain versions", flush=True)
+        bad = {k: v["mismatches"] for k, v in stats.items() if v["mismatches"] or v["max_abs_err"]}
+        if bad:
+            raise RuntimeError(f"kernels disagree with their plain versions at K = 16: {bad}")
     by_path = {"msm_2^20": launches, "groth16_2^16": g16_launches,
                f"pairing_{PAIRING_B}": pr["launches"],
-               f"pinocchio_2^{PINOCCHIO_LOG2_N}": pn["launches"]}
+               f"pinocchio_2^{PINOCCHIO_LOG2_N}": pn["launches"],
+               **{path: v["launches"] for path, v in sp.items()}}
     # launches at each timed shape, by path, from the instrumented runs
     shape_counts = {"groth16_prove": g16["launches_per_prove"],
                     "groth16_verify": g16["verify_count"]["launches"],
                     f"pairing_{PAIRING_B}": pc["launches"],
                     "pinocchio_prove": po["prove_count"]["launches"],
-                    "pinocchio_verify": po["verify_count"]["launches"]}
+                    "pinocchio_verify": po["verify_count"]["launches"],
+                    f"ipa_2^{IPA_LOG2_N}": sc["ipa"]["launches"],
+                    f"range_{RANGE_BITS}": sc["range"]["launches"],
+                    f"ecdsa_verify_{ECDSA_B}": sc["verify"]["launches"]}
     kernels = []
     for name, source, replaces, _ in KERNELS:
         s = stats[name]

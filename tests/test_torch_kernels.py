@@ -8,7 +8,9 @@ integer arithmetic), at batches that are not a multiple of the block size
 of the complete addition; then the MSM through the kernels against the
 plain MSM and the host oracle; then the pairing path: Fq12 products,
 inverses and Frobenius maps at the verify's and bench_pairing's stacks,
-pairing_e against the host optimal-ate, and the Groth16 verify. This file
+pairing_e against the host optimal-ate, and the Groth16 verify; then the
+secp256k1 tier at K = 16: msm_pippenger_many and the ECDSA batch functions
+on the card against the same calls on CPU tensors. This file
 imports no JAX, so it runs on a machine that has none:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
@@ -396,3 +398,46 @@ def test_groth16_verify_on_card_accepts_and_rejects(card):
              CK.point_double_fused.launches]
     assert all(a > b for a, b in zip(after, counts))
     assert not verifier.verify(proof, crs, B.tampered(prover.statement()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c", [(5, 2), (64, None)])
+def test_msm_many_on_card_matches_cpu_plain(card, n, c):
+    """msm_pippenger_many over two secp256k1 streams on the card (B1-B3 at
+    K = 16) against the same call on CPU tensors, limb for limb."""
+    from zk_toolkit_tpu_torch.curves import secp256k1
+
+    spec = L.field_spec(secp256k1.P)
+    rng = np.random.default_rng(70 + n)
+    ks = [int(x) for x in rng.integers(1, 1 << 62, 2 * n)]
+    ks[1] = 0                                            # an infinity base
+    affs = HC.multi_mul(HC.FpHost(secp256k1.P), (secp256k1.GX, secp256k1.GY), ks)
+    pts = tuple(a.view(2, n, 16) for a in C.pack_points(affs, spec, device="cpu"))
+    sc = torch.from_numpy(rng.integers(0, 1 << 16, size=(2, n, 16)).astype(np.int32))
+    sc[0, 2] = 0                                         # a zero scalar row
+    want = M.msm_pippenger_many(FqOps(spec), pts, sc, 256, c=c)
+    before = CK.point_add_fused.launches
+    got = M.msm_pippenger_many(FqOps(spec), tuple(a.to(card) for a in pts), sc.to(card), 256, c=c)
+    assert CK.point_add_fused.launches > before
+    _equal(tuple(g.cpu() for g in got), want)
+
+
+@pytest.mark.cuda
+def test_ecdsa_verify_on_card_matches_cpu_plain(card):
+    """ecdsa_sign_batch and ecdsa_verify_batch on the card against the same
+    calls on CPU tensors: 8 signatures, rows 0-4 made bad (bench's
+    ECDSA_BAD_ROWS); equal (r, s) limbs and equal masks."""
+    from zk_toolkit_tpu_torch import bench as B
+    from zk_toolkit_tpu_torch.ops import signature_ops as SIG
+
+    privs, ks, digests = B.ecdsa_inputs(8)
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        d, k = (C.pack_scalars(v, 256, device=dev) for v in (privs, ks))
+        pub = SIG.ecdsa_keygen_batch(d)
+        r, s, ok = SIG.ecdsa_sign_batch(d, k, digests)
+        mask = SIG.ecdsa_verify_batch(*B.ecdsa_bad_batch(r, s, pub, digests))
+        out[dev.type] = [t.cpu() for t in (*pub, r, s, ok, mask)]
+    for g, w in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(g, w)
+    assert out["cuda"][-1].tolist() == [False] * 5 + [True] * 3

@@ -52,7 +52,10 @@ def test_scan_sees_the_whole_port():
                    "protocols/groth16_device.py", "snark/r1cs.py", "snark/synthetic.py",
                    "fields/prime_field.py", "curves/bls12_381/pairing.py", "utils/rng.py",
                    "curves/bls12_381/optimal_ate.py", "protocols/pinocchio_device.py",
-                   "utils/serialize.py", "entry.py", "bench.py"):
+                   "utils/serialize.py", "entry.py", "bench.py", "curves/secp256k1.py",
+                   "hashers/sha256.py", "hashers/sha512.py", "hashers/hmac.py",
+                   "protocols/bulletproofs.py", "protocols/bulletproofs_device.py",
+                   "ops/signature_ops.py", "signatures/ecdsa.py"):
         assert f"zk_toolkit_tpu_torch/{module}" in names
     assert _forbidden("jax.numpy") and _forbidden("zk_toolkit_tpu.ops.limbs")
     assert not _forbidden("zk_toolkit_tpu_torch.ops.limbs")

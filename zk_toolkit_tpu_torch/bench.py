@@ -24,16 +24,28 @@ bench_pinocchio: the Pinocchio CRS, prove and verify on the same circuit;
 the nine proof elements must equal their trapdoor multiples, the verifier
 must accept the proof and reject a wrong statement.
 
+bench_ipa: one Bulletproofs inner-product argument over 2^10 secp256k1
+bases (bench.py:bench_ipa's size), refused unless it accepts the true
+statement and rejects P + G. bench_range_proof: the 64-bit range proof with
+the IPA, refused unless it accepts v < 2^64 and rejects a flipped witness
+bit. bench_ecdsa: batched ECDSA keygen, sign and verify over 4096
+signatures, refused unless every row verifies, the bad rows are rejected
+and sampled rows equal the host's equations.
+
 Run on a card: python -m zk_toolkit_tpu_torch.bench [log2_n]   (the MSM)
                python -m zk_toolkit_tpu_torch.bench groth16 [log2_n]
                python -m zk_toolkit_tpu_torch.bench pairing [b]
                python -m zk_toolkit_tpu_torch.bench field_muls [log2_b]
                python -m zk_toolkit_tpu_torch.bench pinocchio [log2_n]
+               python -m zk_toolkit_tpu_torch.bench ipa [log2_n]
+               python -m zk_toolkit_tpu_torch.bench range [n]
+               python -m zk_toolkit_tpu_torch.bench ecdsa [b]
 """
 
 from __future__ import annotations
 
 import json
+import random
 import sys
 import time
 
@@ -58,6 +70,24 @@ def _sync(dev: torch.device):
         torch.cuda.synchronize(dev)
 
 
+def _peak(dev) -> dict:
+    return {"peak_bytes": torch.cuda.max_memory_allocated(dev)} if dev.type == "cuda" else {}
+
+
+def _reset_peak(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _timed(dev, f):
+    """(f(), seconds on the host clock, synchronised before and after)."""
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = f()
+    _sync(dev)
+    return out, time.perf_counter() - t0
+
+
 def msm_inputs(n: int, device):
     """The benchmark's inputs, from default_rng(1) as in bench.py: base
     scalars k_i (256-bit), MSM scalars s_i masked to 255 bits (the 32 c=8
@@ -79,11 +109,7 @@ def bench_msm(n: int = 1 << 20, device="cuda", reps: int = 3, c: int | None = No
     ops = FqOps(spec)
     base_np, scalars_np, base, scalars = msm_inputs(n, dev)
 
-    _sync(dev)
-    t0 = time.perf_counter()
-    pts = fixed_base_g1(base)
-    _sync(dev)
-    point_gen_first_s = time.perf_counter() - t0
+    pts, point_gen_first_s = _timed(dev, lambda: fixed_base_g1(base))
 
     res = M.msm_pippenger(ops, pts, scalars, 255, c=c)
     got = C.unpack_points(tuple(a[None] for a in res), spec)[0]
@@ -93,8 +119,7 @@ def bench_msm(n: int = 1 << 20, device="cuda", reps: int = 3, c: int | None = No
             f"MSM(n={n}) does not match the known-dlog host oracle — refusing to report"
         )
 
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
+    _reset_peak(dev)
     spans = Spans(dev)
     _sync(dev)
     with spans.span("point_gen"):
@@ -108,7 +133,7 @@ def bench_msm(n: int = 1 << 20, device="cuda", reps: int = 3, c: int | None = No
     ms = spans.totals()
     dt = ms.pop("msm") / reps / 1e3
     split = {k: v / (1 if k == "point_gen" else reps) for k, v in ms.items()}
-    out = {
+    return {
         "n": n,
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
         "known_dlog_ok": True,
@@ -117,10 +142,8 @@ def bench_msm(n: int = 1 << 20, device="cuda", reps: int = 3, c: int | None = No
         "points_per_s": n / dt,
         "point_gen_first_s": point_gen_first_s,
         "split_ms": split,
+        **_peak(dev),
     }
-    if dev.type == "cuda":
-        out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
-    return out
 
 
 # bench.py's trapdoor and randomness: a warm-up prove, then TIMED_PROVES
@@ -255,11 +278,7 @@ def groth16_setup(log2_n: int = 16, device="cuda") -> dict:
     tmpl, wit = synthetic_r1cs(params.SUBGROUP, 1 << log2_n, seed=2)
     mat = GD.CircuitMatrices.from_tmpl(tmpl, dev)
     setup_s = time.perf_counter() - t0
-    _sync(dev)
-    t0 = time.perf_counter()
-    crs = GD.DeviceCRS.from_trapdoor(mat, device=dev, **TRAPDOOR)
-    _sync(dev)
-    crs_s = time.perf_counter() - t0
+    crs, crs_s = _timed(dev, lambda: GD.DeviceCRS.from_trapdoor(mat, device=dev, **TRAPDOOR))
     t0 = time.perf_counter()
     prover = GD.DeviceGroth16Prover(mat, wit, dev)
     return {"mat": mat, "crs": crs, "prover": prover, "setup_s": setup_s, "crs_s": crs_s,
@@ -285,15 +304,11 @@ def check_device_verify(verify, proof, crs, stmt, observe=None) -> dict:
     must too) and once on the tampered one (must reject). Returns
     verify_first_s and verify_s (host clock after a synchronise)."""
     dev = crs.mat.a_idx.device
-    _sync(dev)
-    t0 = time.perf_counter()
-    ok = _run(observe, "verify", lambda: verify(proof, crs, stmt))
-    verify_first_s = time.perf_counter() - t0
+    ok, verify_first_s = _timed(dev, lambda: _run(observe, "verify",
+                                                  lambda: verify(proof, crs, stmt)))
     if not ok:
         raise RuntimeError("the device verifier rejects the proof — refusing to report")
-    t0 = time.perf_counter()
-    ok = verify(proof, crs, stmt)
-    verify_s = time.perf_counter() - t0
+    ok, verify_s = _timed(dev, lambda: verify(proof, crs, stmt))
     if not ok:
         raise RuntimeError("the device verifier flipped on re-run — refusing to report")
     if verify(proof, crs, tampered(stmt)):
@@ -323,16 +338,13 @@ def bench_groth16(log2_n: int = 16, device="cuda", setup: dict | None = None,
         setup = groth16_setup(log2_n, dev)
     mat, crs, prover = setup["mat"], setup["crs"], setup["prover"]
 
-    t0 = time.perf_counter()
-    proof = _run(observe, "prove", lambda: prover.prove_with_rs(crs, *WARM_RS))
-    _sync(dev)
-    first_prove_s = time.perf_counter() - t0
+    proof, first_prove_s = _timed(dev, lambda: _run(
+        observe, "prove", lambda: prover.prove_with_rs(crs, *WARM_RS)))
     oracle_s = check_proof(crs, prover, proof, *WARM_RS)
     verify = check_device_verify(DeviceGroth16Verifier().verify, proof, crs, prover.statement(),
                                  observe)
 
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
+    _reset_peak(dev)
     spans = Spans(dev)
     _sync(dev)
     t0 = time.perf_counter()
@@ -343,7 +355,7 @@ def bench_groth16(log2_n: int = 16, device="cuda", setup: dict | None = None,
     want = trapdoor_proof(mat, prover.wires, *TIMED_RS, **TRAPDOOR)
     if proof_affine(proof) != want:
         raise RuntimeError("timed proof differs from the trapdoor's — refusing to report")
-    out = {
+    return {
         "n_constraints": mat.n, "n_pad": mat.n_pad, "m": mat.m, "l": mat.l, "kmax": mat.kmax,
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
         "trapdoor_ok": True, "oracle_ok": True, "device_verify_ok": True,
@@ -352,16 +364,15 @@ def bench_groth16(log2_n: int = 16, device="cuda", setup: dict | None = None,
         "setup_s": setup["setup_s"], "prover_init_s": setup["prover_init_s"],
         "oracle_s": oracle_s,
         "split_ms": {k: v / reps for k, v in spans.totals().items()},
+        **_peak(dev),
     }
-    if dev.type == "cuda":
-        out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
-    return out
 
 
-def bench_pairing(b: int = 256, device="cuda", reps: int = 3) -> dict:
+def bench_pairing(b: int = 256, device="cuda", reps: int = 3, observe=None) -> dict:
     """Batched optimal-ate pairings per second: e(3 G1, 5 G2) tiled to b
     rows, as bench.py:bench_pairing. Refuses to report unless rows 0 and
-    b - 1 equal the host optimal-ate (curves/bls12_381/optimal_ate.py);
+    b - 1 of the first, untimed call (under observe("pairing", ...) when
+    given) equal the host optimal-ate (curves/bls12_381/optimal_ate.py);
     then `reps` timed calls (host clock after a synchronise)."""
     from zk_toolkit_tpu_torch.curves.bls12_381 import g1, g2
     from zk_toolkit_tpu_torch.curves.bls12_381 import optimal_ate as oa
@@ -375,28 +386,20 @@ def bench_pairing(b: int = 256, device="cuda", reps: int = 3) -> dict:
     qa1 = P.pack_g2_affine([g2.g() * 5], spec, dev)
     pa = tuple(a.expand((b,) + a.shape[1:]).contiguous() for a in pa1)
     qa = tuple(a.expand((b,) + a.shape[1:]).contiguous() for a in qa1)
-    _sync(dev)
-    t0 = time.perf_counter()
-    out = P.pairing_e(ops, pa, qa)
-    _sync(dev)
-    first_s = time.perf_counter() - t0
+    out, first_s = _timed(dev, lambda: _run(observe, "pairing", lambda: P.pairing_e(ops, pa, qa)))
     gt = unpack_fq12(out[[0, -1]], spec)
     want = oa.OptimalAtePairing().e(g1.g() * 3, g2.g() * 5).e
     if gt[0] != want or gt[-1] != want:
         raise RuntimeError("device pairing does not match the host optimal-ate oracle — "
                            "refusing to report")
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
+    _reset_peak(dev)
     t0 = time.perf_counter()
     for _ in range(reps):
         out = P.pairing_e(ops, pa, qa)
     _sync(dev)
     dt = (time.perf_counter() - t0) / reps
-    res = {"b": b, "host_oracle_ok": True, "seconds": dt, "first_s": first_s,
-           "pairings_per_s": b / dt}
-    if dev.type == "cuda":
-        res["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
-    return res
+    return {"b": b, "host_oracle_ok": True, "seconds": dt, "first_s": first_s,
+            "pairings_per_s": b / dt, **_peak(dev)}
 
 
 def bench_field_muls(log2_b: int = 16, chain: int = 64, device="cuda", reps: int = 3) -> dict:
@@ -507,11 +510,8 @@ def pinocchio_setup(log2_n: int = 16, device="cuda") -> dict:
     dev = resolve_device(device)
     tmpl, wit = synthetic_r1cs(params.SUBGROUP, 1 << log2_n, seed=2)
     mat = GD.CircuitMatrices.from_tmpl(tmpl, dev)
-    _sync(dev)
-    t0 = time.perf_counter()
-    crs = PD.DevicePinocchioCRS.from_trapdoor(mat, device=dev, **PINOCCHIO_TRAPDOOR)
-    _sync(dev)
-    crs_s = time.perf_counter() - t0
+    crs, crs_s = _timed(dev, lambda: PD.DevicePinocchioCRS.from_trapdoor(
+        mat, device=dev, **PINOCCHIO_TRAPDOOR))
     return {"mat": mat, "crs": crs, "prover": PD.DevicePinocchioProver(mat, wit, dev),
             "crs_s": crs_s}
 
@@ -530,17 +530,10 @@ def bench_pinocchio(log2_n: int = 16, device="cuda", setup: dict | None = None,
     if setup is None:
         setup = pinocchio_setup(log2_n, dev)
     mat, crs, prover = setup["mat"], setup["crs"], setup["prover"]
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
-    _sync(dev)
-    t0 = time.perf_counter()
-    proof = prover.prove_with_deltas(crs, *PINOCCHIO_DELTAS)
-    _sync(dev)
-    prove_s = time.perf_counter() - t0
+    _reset_peak(dev)
+    proof, prove_s = _timed(dev, lambda: prover.prove_with_deltas(crs, *PINOCCHIO_DELTAS))
     out = {"n_constraints": mat.n, "n_pad": mat.n_pad, "m": mat.m, "l": mat.l,
-           "crs_s": setup["crs_s"], "prove_s": prove_s}
-    if dev.type == "cuda":
-        out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+           "crs_s": setup["crs_s"], "prove_s": prove_s, **_peak(dev)}
     check_pinocchio_proof(prover, proof)
     out["trapdoor_ok"] = True
     out.update(check_device_verify(DevicePinocchioVerifier().verify, proof, crs,
@@ -549,10 +542,244 @@ def bench_pinocchio(log2_n: int = 16, device="cuda", setup: dict | None = None,
     return out
 
 
+# -- the secp256k1 tier: Bulletproofs and ECDSA ---------------------------------
+
+def secp_multiples(ks):
+    """[k * G for k in ks] on secp256k1 as affine (x, y) ints (None for
+    infinity), by the host's Jacobian formulas."""
+    from zk_toolkit_tpu_torch.curves import secp256k1
+
+    return HC.multi_mul(HC.FpHost(secp256k1.P), (secp256k1.GX, secp256k1.GY), ks)
+
+
+def ipa_setup(log2_n: int = 10, device="cuda") -> dict:
+    """bench.py:bench_ipa's statement, from random.Random(17): bases g, h
+    (n each) and u as one batched scalar_mul of the generator on the
+    device, random a, b, and P = g^a h^b u^<a,b> as one (2n+1)-point MSM;
+    then the log2(n) challenges."""
+    from zk_toolkit_tpu_torch.curves import secp256k1
+    from zk_toolkit_tpu_torch.protocols import bulletproofs_device as BD
+
+    dev = resolve_device(device)
+    n = 1 << log2_n
+    rng = random.Random(17)
+    spec = BD._P_OPS.spec
+    gp = C.pack_points([secp256k1.g()], spec, device=dev)
+    ks = [rng.randrange(1, secp256k1.N) for _ in range(2 * n + 1)]
+    base = tuple(t.expand((2 * n + 1,) + t.shape[1:]) for t in gp)
+    pts = C.scalar_mul(BD._P_OPS, base, C.pack_scalars(ks, 256, device=dev), 256)
+    a = [rng.randrange(secp256k1.N) for _ in range(n)]
+    b = [rng.randrange(secp256k1.N) for _ in range(n)]
+    c = sum(x * y for x, y in zip(a, b)) % secp256k1.N
+    P = tuple(t[None] for t in M.msm_pippenger(
+        BD._P_OPS, pts, C.pack_scalars(a + b + [c], 256, device=dev), 256))
+    chal = [rng.randrange(1, secp256k1.N) for _ in range(log2_n)]
+    return {"n": n, "gg": tuple(t[:n] for t in pts), "hh": tuple(t[n:2 * n] for t in pts),
+            "u": tuple(t[2 * n:] for t in pts), "P": P, "G": gp, "a": BD._fr(a, dev),
+            "b": BD._fr(b, dev), "chal": chal, "ks": ks, "c": c}
+
+
+def bench_ipa(log2_n: int = 10, device="cuda", observe=None) -> dict:
+    """Seconds for one 2^log2_n Bulletproofs inner-product argument (the
+    port of bench.py:bench_ipa): a first call (under observe("ipa", ...)
+    when given) must accept the true statement, the timed second call too
+    (ipa_s), and a call on P + G must reject; else no number is reported.
+    Before any of it, the setup's P is checked against the host: its affine
+    point equals (sum a_i k_i + sum b_i k_(n+i) + c k_2n) * G, with k the
+    dlogs of the bases."""
+    from zk_toolkit_tpu_torch.curves import secp256k1
+    from zk_toolkit_tpu_torch.protocols import bulletproofs_device as BD
+
+    dev = resolve_device(device)
+    st, setup_s = _timed(dev, lambda: ipa_setup(log2_n, dev))
+    n, N = st["n"], secp256k1.N
+    a, b = (L.unpack(st[k], BD._N_SPEC) for k in ("a", "b"))
+    ks = st["ks"]
+    dlog = (sum(x * k for x, k in zip(a + b, ks)) + st["c"] * ks[-1]) % N
+    if C.unpack_points(st["P"], BD._P_OPS.spec)[0] != secp_multiples([dlog])[0]:
+        raise RuntimeError("the IPA statement P differs from its known dlog — refusing to report")
+
+    def ipa(P):
+        return BD.DeviceBulletproofs(list(st["chal"])).inner_product_argument(
+            n, st["gg"], st["hh"], st["u"], P, st["a"], st["b"])
+
+    _reset_peak(dev)
+    ok, first_s = _timed(dev, lambda: _run(observe, "ipa", lambda: ipa(st["P"])))
+    if not ok:
+        raise RuntimeError("the IPA rejects a true statement — refusing to report")
+    ok, ipa_s = _timed(dev, lambda: ipa(st["P"]))
+    if not ok:
+        raise RuntimeError("the IPA flipped on re-run — refusing to report")
+    out = {"n": n, "accepts": True, "ipa_s": ipa_s, "first_s": first_s, "setup_s": setup_s,
+           **_peak(dev)}
+    if ipa(C.point_add(BD._P_OPS, st["P"], st["G"])):
+        raise RuntimeError("the IPA accepts P + G — refusing to report")
+    out["rejects_perturbed"] = True
+    return out
+
+
+def range_setup(n: int = 64, device="cuda") -> dict:
+    """A range-proof statement over n bits from random.Random(3): g, h, the
+    bases gg, hh (each a random multiple of the generator, made on the
+    host), gamma, V = h^gamma g^v for a random n-bit v, its bits, and the
+    3 + log2(n) challenges and 2n + 5 random values the prover consumes."""
+    from zk_toolkit_tpu_torch.curves import secp256k1
+    from zk_toolkit_tpu_torch.protocols import bulletproofs_device as BD
+
+    dev = resolve_device(device)
+    N = secp256k1.N
+    rng = random.Random(3)
+    v = rng.randrange(1 << n)
+    gamma = rng.randrange(1, N)
+    ks = [rng.randrange(1, N) for _ in range(2 * n + 2)]
+    pts = C.pack_points(secp_multiples(ks), BD._P_OPS.spec, device=dev)
+    V = C.pack_points(secp_multiples([(ks[1] * gamma + ks[0] * v) % N]), BD._P_OPS.spec,
+                      device=dev)
+    return {"n": n, "v": v, "gamma": gamma, "V": V,
+            "g": tuple(t[:1] for t in pts), "h": tuple(t[1:2] for t in pts),
+            "gg": tuple(t[2:2 + n] for t in pts), "hh": tuple(t[2 + n:] for t in pts),
+            "bits": [(v >> i) & 1 for i in range(n)],
+            "chal": [rng.randrange(1, N) for _ in range(3 + n.bit_length() - 1)],
+            "rand": [rng.randrange(1, N) for _ in range(2 * n + 5)]}
+
+
+def range_proof(st: dict, bits=None) -> bool:
+    """DeviceBulletproofs.range_proof with the IPA on a range_setup
+    statement, with its bits or the given witness bits."""
+    from zk_toolkit_tpu_torch.protocols import bulletproofs_device as BD
+
+    bp = BD.DeviceBulletproofs(list(st["chal"]), list(st["rand"]))
+    return bp.range_proof(st["n"], st["V"], st["bits"] if bits is None else bits, st["gamma"],
+                          st["g"], st["h"], st["gg"], st["hh"], use_inner_product_argument=True)
+
+
+def bench_range_proof(n: int = 64, device="cuda", observe=None) -> dict:
+    """Seconds for the n-bit range proof with the inner-product argument:
+    a first call (under observe("range", ...) when given) and the timed
+    second call (range_s) must accept v < 2^n, and a call with the lowest
+    witness bit flipped must reject; else no number is reported."""
+    dev = resolve_device(device)
+    st, setup_s = _timed(dev, lambda: range_setup(n, device=dev))
+    _reset_peak(dev)
+    ok, first_s = _timed(dev, lambda: _run(observe, "range", lambda: range_proof(st)))
+    if not ok:
+        raise RuntimeError("the range proof rejects v < 2^n — refusing to report")
+    ok, range_s = _timed(dev, lambda: range_proof(st))
+    if not ok:
+        raise RuntimeError("the range proof flipped on re-run — refusing to report")
+    out = {"n": n, "accepts": True, "range_s": range_s, "first_s": first_s,
+           "setup_s": setup_s, **_peak(dev)}
+    bad = list(st["bits"])
+    bad[0] ^= 1
+    if range_proof(st, bad):
+        raise RuntimeError("the range proof accepts a flipped witness bit — refusing to report")
+    out["rejects_flipped_bit"] = True
+    return out
+
+
+# Rows of bench_ecdsa's bad batch, each rejected for one reason.
+ECDSA_BAD_ROWS = ("flipped digest", "r = 0", "s = n", "infinity public key",
+                  "off-curve public key")
+
+
+def ecdsa_inputs(b: int):
+    """b private keys and nonces in [1, n-1] from random.Random(11), and
+    the SHA-256 digests (uint8 [b, 32]) of the messages "message-<i>"."""
+    from zk_toolkit_tpu_torch.curves import secp256k1
+    from zk_toolkit_tpu_torch.hashers import Sha256
+
+    rng = random.Random(11)
+    privs = [rng.randrange(1, secp256k1.N) for _ in range(b)]
+    ks = [rng.randrange(1, secp256k1.N) for _ in range(b)]
+    digests = np.frombuffer(b"".join(Sha256.get_digest(f"message-{i}".encode())
+                                     for i in range(b)), dtype=np.uint8).reshape(b, 32)
+    return privs, ks, digests
+
+
+def ecdsa_host_rs(priv: int, k: int, digest) -> tuple[int, int]:
+    """(r, s) by the reference's equations on the host: r = (kG).x mod n,
+    s = k^-1 (z + r d) mod n with z the digest mod n."""
+    from zk_toolkit_tpu_torch.curves import secp256k1
+
+    N = secp256k1.N
+    r = secp_multiples([k])[0][0] % N
+    z = int.from_bytes(bytes(digest), "big") % N
+    return r, pow(k, -1, N) * (z + r * priv) % N
+
+
+def ecdsa_bad_batch(r, s, pub, digests):
+    """Copies of a signed batch with rows 0-4 made bad, one per reason of
+    ECDSA_BAD_ROWS."""
+    from zk_toolkit_tpu_torch.curves import secp256k1
+    from zk_toolkit_tpu_torch.ops import signature_ops as SIG
+
+    r, s = r.clone(), s.clone()
+    pub = tuple(t.clone() for t in pub)
+    digests = digests.copy()
+    digests[0, 0] ^= 1
+    r[1] = 0
+    s[2] = L.const_limbs(secp256k1.N, 16, str(s.device))
+    inf = C.infinity_like(SIG._P_OPS, tuple(t[3:4] for t in pub))
+    off = C.pack_points([(secp256k1.GX, (secp256k1.GY + 1) % secp256k1.P)], SIG._P_OPS.spec,
+                        device=r.device)
+    for t, i, o in zip(pub, inf, off):
+        t[3], t[4] = i[0], o[0]
+    return r, s, pub, digests
+
+
+def bench_ecdsa(b: int = 4096, device="cuda", observe=None) -> dict:
+    """Batched ECDSA over b signatures: keygen (keygen_s), sign (a first
+    call, then the timed sign_s), then verify: a first call (under
+    observe("verify", ...) when given) on a copy with rows 0-4 made bad
+    (ECDSA_BAD_ROWS) must reject exactly those rows, and the timed call on
+    the true batch (verify_s) must accept every row. Refuses to report
+    unless, besides, every row signed (ok mask) and the first, middle and
+    last rows' public keys and (r, s) equal the host's."""
+    from zk_toolkit_tpu_torch.ops import signature_ops as SIG
+
+    dev = resolve_device(device)
+    privs, ks, digests = ecdsa_inputs(b)
+    d = C.pack_scalars(privs, 256, device=dev)
+    k = C.pack_scalars(ks, 256, device=dev)
+    _reset_peak(dev)
+    pub, keygen_s = _timed(dev, lambda: SIG.ecdsa_keygen_batch(d))
+    _, sign_first_s = _timed(dev, lambda: SIG.ecdsa_sign_batch(d, k, digests))
+    (r, s, ok), sign_s = _timed(dev, lambda: SIG.ecdsa_sign_batch(d, k, digests))
+    if not bool(ok.all()):
+        raise RuntimeError("ecdsa_sign_batch flagged rows with r or s = 0 — refusing to report")
+    rows = sorted({0, b // 2, b - 1})
+    got_pub = C.unpack_points(tuple(t[rows] for t in pub), SIG._P_OPS.spec)
+    got_r, got_s = (L.unpack(t[rows], SIG._N_SPEC, mont=False) for t in (r, s))
+    for j, i in enumerate(rows):
+        if got_pub[j] != secp_multiples([privs[i]])[0]:
+            raise RuntimeError(f"public key {i} differs from d * G — refusing to report")
+        if (got_r[j], got_s[j]) != ecdsa_host_rs(privs[i], ks[i], digests[i]):
+            raise RuntimeError(f"signature {i} differs from the host equations — "
+                               "refusing to report")
+    bad = ecdsa_bad_batch(r, s, pub, digests)
+    mask, verify_first_s = _timed(dev, lambda: _run(
+        observe, "verify", lambda: SIG.ecdsa_verify_batch(*bad)))
+    want = torch.ones(b, dtype=torch.bool)
+    want[:len(ECDSA_BAD_ROWS)] = False
+    if not torch.equal(mask.cpu(), want):
+        wrong = (mask.cpu() != want).nonzero().flatten().tolist()
+        raise RuntimeError(f"ecdsa_verify_batch is wrong on rows {wrong[:8]} of the bad batch "
+                           f"(rows 0-4: {', '.join(ECDSA_BAD_ROWS)}) — refusing to report")
+    mask, verify_s = _timed(dev, lambda: SIG.ecdsa_verify_batch(r, s, pub, digests))
+    if not bool(mask.all()):
+        raise RuntimeError("ecdsa_verify_batch rejects a valid signature — refusing to report")
+    return {"b": b, "host_rs_ok": True, "rejects_bad_rows": list(ECDSA_BAD_ROWS),
+            "keygen_s": keygen_s, "sign_first_s": sign_first_s, "sign_s": sign_s,
+            "verify_first_s": verify_first_s, "verify_s": verify_s,
+            "sign_per_s": b / sign_s, "verify_per_s": b / verify_s, **_peak(dev)}
+
+
 if __name__ == "__main__":
     args = sys.argv[1:]
     benches = {"groth16": (bench_groth16, 16), "pairing": (bench_pairing, 256),
-               "field_muls": (bench_field_muls, 16), "pinocchio": (bench_pinocchio, 16)}
+               "field_muls": (bench_field_muls, 16), "pinocchio": (bench_pinocchio, 16),
+               "ipa": (bench_ipa, 10), "range": (bench_range_proof, 64),
+               "ecdsa": (bench_ecdsa, 4096)}
     if args and args[0] in benches:
         fn, default = benches[args[0]]
         print(json.dumps(fn(int(args[1]) if len(args) > 1 else default)))

@@ -2,9 +2,12 @@
 both compute on the same inputs.
 
 The JAX package holds limbs as uint32 arrays [..., K] (values < 2^16); the
-port holds the same limbs as int32 tensors. Anything numpy can read goes in
-(a jax.Array converts through np.asarray without this module importing JAX);
-numpy arrays come out.
+port holds the same limbs as int32 tensors. K is whatever the array has:
+24 for BLS12-381 Fq, 16 for Fr, for secp256k1 coordinates ([N, 16]
+Jacobian point tuples) and for Fr(n) scalar vectors (the Bulletproofs and
+ECDSA limbs). Anything numpy can read goes in (a jax.Array converts
+through np.asarray without this module importing JAX); numpy arrays come
+out.
 """
 
 from __future__ import annotations

@@ -216,11 +216,13 @@ def to_affine(ops, p):
     return ax, ay, inf
 
 
-# -- host conversion (BLS12-381 G1) -------------------------------------------
+# -- host conversion (base-field curves: secp256k1, BLS12-381 G1) -------------
 
 def pack_points(affs, spec: L.FieldSpec, device="cuda"):
-    """Host affine points ((x, y) int pairs, None = infinity) -> Jacobian
-    tuple of int32 [N, K] Montgomery tensors on `device`."""
+    """Host affine points -> Jacobian tuple of int32 [N, K] Montgomery
+    tensors on `device`. A point is a host AffinePoint (secp256k1 at
+    K = 16, as the JAX package's pack_points takes it), an (x, y) int pair
+    or None (infinity)."""
     from zk_toolkit_tpu_torch import resolve_device
 
     dev = resolve_device(device)

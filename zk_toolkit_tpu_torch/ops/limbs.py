@@ -223,6 +223,28 @@ def sub_mod(a: torch.Tensor, b: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
     return _batch_major(out, shape)
 
 
+def _shift_up(x: torch.Tensor, d: int) -> torch.Tensor:
+    """Shift limbs toward higher index by d (zeros fill the low limbs)."""
+    return F.pad(x, (d, 0))[..., :x.shape[-1]]
+
+
+def _sub_limbs(a: torch.Tensor, b: torch.Tensor):
+    """a - b over normalized limbs [..., K] (no modulus): (diff mod
+    2^(16K), borrow 0/1), as the JAX package computes them. The borrow into
+    limb i+1 is B[i] = (a < b)[i] | ((a == b)[i] & B[i-1]), an associative
+    prefix solved in ceil(log2 K) shift rounds, so there is no host sync."""
+    a, b = torch.broadcast_tensors(a, b)
+    g = (a < b).int()
+    p = (a == b).int()
+    d = 1
+    while d < a.shape[-1]:
+        g = g | (p & _shift_up(g, d))
+        p = p & _shift_up(p, d)
+        d *= 2
+    diff = (a - b - _shift_up(g, 1)) & MASK
+    return diff, g[..., -1]
+
+
 def neg_mod(a: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
     k = spec.K
     A = _limb_major(a, k)

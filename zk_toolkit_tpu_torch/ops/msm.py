@@ -30,6 +30,12 @@ Above ZKT_MSM_MAX_STREAM points (default 2^20) the stream is cut into
 sub-MSMs of that many points whose results are joined by point_add, as in
 the JAX package: the result is the same point, in another Jacobian
 representation.
+
+msm_pippenger_many runs B independent MSMs (B point streams, as the
+Bulletproofs rounds give L and R) in one pass: every (stream, window) pair
+is a digit column of the same sort/up-sweep/Fenwick pass, whose gather
+reads each column's points from its own stream, and one Horner over the
+[W, B] window sums combines the windows; each stream's limbs are those msm_pippenger gives it.
 """
 
 from __future__ import annotations
@@ -66,16 +72,33 @@ def _window_digits_group(scalars: torch.Tensor, c: int, lo: int, hi: int) -> tor
     return torch.stack([_window_digits(scalars, c, w) for w in range(lo, hi)], dim=0)
 
 
-def _sorted_stream(pts, digits: torch.Tensor):
-    """Sorted (keys, points) per window. pts: Jacobian tuple [N, K];
-    digits: int64 [W, N]. Stable sort along N (the JAX package's argsort
-    is stable too, so equal digits keep the same order), then ONE gather of
-    the fused [N, 3K] rows; the returned coordinates are column views of
-    the [W, N, 3K] sorted copy."""
+def _window_digits_cols(scalars: torch.Tensor, c: int, lo: int, hi: int) -> torch.Tensor:
+    """Column-batched digits of windows [lo, hi): scalars int32 [B, N, S]
+    (B independent streams) -> int64 [B * (hi-lo), N], row b*W + w the
+    digits of window lo + w of stream b (the JAX package's column order)."""
+    per = LIMB_BITS // c
+    cols = [(scalars[:, :, w // per].long() >> ((w % per) * c)) & ((1 << c) - 1)
+            for w in range(lo, hi)]
+    return torch.stack(cols, dim=1).reshape(-1, scalars.shape[1])
+
+
+def _sorted_stream(pts, digits: torch.Tensor, src_cols: int | None = None):
+    """Sorted (keys, points) per window. digits: int64 [M, N], one row per
+    window column. pts: Jacobian tuple [N, K] when src_cols is None (one
+    source stream), else [B, N, K] with B = src_cols source streams, and
+    row j of digits gathers from stream j // (M / B). Stable sort along N
+    (the JAX package's argsort is stable too, so equal digits keep the same
+    order), then ONE gather of the fused [N, 3K] rows; the returned
+    coordinates are column views of the [M, N, 3K] sorted copy."""
     keys, order = torch.sort(digits, dim=1, stable=True)
     k = pts[0].shape[-1]
-    comb = torch.cat(pts, dim=-1)                        # [N, 3K]
-    out = comb[order]                                    # [W, N, 3K]
+    comb = torch.cat(pts, dim=-1)                        # [(B,) N, 3K]
+    if src_cols is None:
+        out = comb[order]                                # [M, N, 3K]
+    else:
+        m = digits.shape[0]
+        src = torch.arange(m, device=digits.device) // (m // src_cols)
+        out = comb[src[:, None], order]                  # [M, N, 3K]
     return keys, (out[..., :k], out[..., k:2 * k], out[..., 2 * k:])
 
 
@@ -121,14 +144,15 @@ def _small_scalar_mul(ops, p, k: int):
     return acc
 
 
-def _msm_window(ops, pts, digits: torch.Tensor, c: int, spans=None):
+def _msm_window(ops, pts, digits: torch.Tensor, c: int, spans=None,
+                src_cols: int | None = None):
     """One Pippenger window group: sort by digit, up-sweep sum tree with each
     level's Fenwick contribution folded in as the level is produced (so no
     level list stays live), boundary reduction. digits int64 [W, N] ->
-    points [W, K]."""
+    points [W, K]; with src_cols, pts are src_cols streams (_sorted_stream)."""
     span = spans.span if spans is not None else contextlib.nullcontext
     with span("sort_gather"):
-        keys, spts = _sorted_stream(pts, digits)
+        keys, spts = _sorted_stream(pts, digits, src_cols)
     with span("upsweep_fenwick"):
         p = _boundary_positions(keys, 1 << c)            # [2^c-1, W]
         sex = _fenwick_gather_level(ops, spts, p, 0)
@@ -149,13 +173,29 @@ def _msm_window(ops, pts, digits: torch.Tensor, c: int, spans=None):
 
 def _horner_combine(ops, window_pts, c: int):
     """sum_w 2^(c*w) * S_w, MSB window first: acc = 2^c * acc + S_w.
-    window_pts: Jacobian tuple with leading window axis W (ascending)."""
+    window_pts: Jacobian tuple with leading window axis W (ascending); any
+    batch axes after it are carried through."""
     w = window_pts[0].shape[0]
     acc = C.infinity_like(ops, tuple(a[0] for a in window_pts))
     for i in range(w):
         acc = C.point_double_n(ops, acc, c)
         acc = C.point_add(ops, acc, tuple(a[w - 1 - i] for a in window_pts))
     return acc
+
+
+def _pad_stream_axis1(ops, pts, scalars: torch.Tensor):
+    """Pad the stream axis (axis 1) of batched [B, n, ...] inputs to a power
+    of two with infinity points and zero scalars."""
+    n = pts[0].shape[1]
+    m = 1 << max(0, (n - 1).bit_length())
+    if m == n:
+        return pts, scalars
+    pad = m - n
+    inf = C.infinity_like(ops, tuple(a[:, :1].expand((a.shape[0], pad) + a.shape[2:])
+                                     for a in pts))
+    pts = tuple(torch.cat([a, i], dim=1) for a, i in zip(pts, inf))
+    z = scalars.new_zeros(scalars.shape[:1] + (pad,) + scalars.shape[2:])
+    return pts, torch.cat([scalars, z], dim=1)
 
 
 def _point_words(pts) -> int:
@@ -213,3 +253,32 @@ def msm_pippenger(ops, pts, scalars: torch.Tensor, nbits: int, c: int | None = N
     stacked = tuple(torch.cat([p[i] for p in partials], dim=0) for i in range(3))
     with span("horner"):
         return _horner_combine(ops, stacked, c)
+
+
+def msm_pippenger_many(ops, pts, scalars: torch.Tensor, nbits: int, c: int | None = None):
+    """B independent MSMs in one batched pass: pts Jacobian tuple [B, n, K]
+    over distinct point sets, scalars int32 [B, n, S] -> results [B, K].
+
+    The stream axis is padded to a power of two with infinity points and
+    zero scalars. Every (stream, window) pair is its own digit column of
+    one sort + up-sweep + Fenwick pass over the group, which gathers each
+    column's points from its own stream; one Horner over [W, B] combines
+    the windows. The operations and their order are the JAX package's."""
+    b = pts[0].shape[0]
+    pts, scalars = _pad_stream_axis1(ops, pts, scalars)
+    n = pts[0].shape[1]
+    c = c or default_window_bits(n)
+    if LIMB_BITS % c:
+        raise ValueError("window size must divide the limb width")
+    n_windows = (nbits + c - 1) // c
+    wc = _auto_window_chunk(n * b, n_windows, _point_words(tuple(a[0] for a in pts)),
+                            scalars.device)
+    partials = []  # per group: tuple of [B, W, K]
+    for lo in range(0, n_windows, wc):
+        hi = min(lo + wc, n_windows)
+        digits = _window_digits_cols(scalars, c, lo, hi)      # [B*W, n]
+        grp = _msm_window(ops, pts, digits, c, src_cols=b)    # [B*W, K]
+        partials.append(tuple(x.reshape((b, hi - lo) + x.shape[1:]) for x in grp))
+    stacked = tuple(torch.cat([p[i] for p in partials], dim=1).transpose(0, 1)
+                    for i in range(3))                        # [W, B, K]
+    return _horner_combine(ops, stacked, c)

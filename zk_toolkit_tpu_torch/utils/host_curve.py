@@ -5,8 +5,9 @@ port's own copy of zk_toolkit_tpu/utils/host_curve.py).
 Inversion-free Jacobian formulas (dbl-2009-l / add-2007-bl, the same as
 ops/curve_ops.py) over bare values, with one modular inverse per
 jac_to_affine. Field protocol: mul/sq/add/sub/dbl/inv/is_zero over raw
-values, int for Fq (G1, FpHost) and (u0, u1) int pairs for Fq2 (G2,
-Fp2Host, u^2 = -1). Points are (x, y, z) triples; z == 0 means infinity.
+values, int for a prime field (FpHost: BLS12-381 G1, secp256k1) and
+(u0, u1) int pairs for Fq2 (G2, Fp2Host, u^2 = -1). Points are (x, y, z)
+triples; z == 0 means infinity.
 """
 
 from __future__ import annotations
@@ -175,16 +176,26 @@ def g1_mul_affine(k: int):
     return jac_to_affine(F, jac_mul(F, g, k))
 
 
+def affine_ints(pt):
+    """(x, y) ints, or None for infinity, of a point given as an (x, y) int
+    pair, None, or a host AffinePoint over a prime field (secp256k1,
+    BLS12-381 G1: anything with is_zero() and PrimeFieldElem x, y)."""
+    if pt is None or isinstance(pt, tuple):
+        return pt
+    return None if pt.is_zero() else (pt.x.e, pt.y.e)
+
+
 def pack_g1_jac(affs, spec) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Affine (x, y)/None list -> host Jacobian tuple (x, y, z) uint32[N, K],
-    Montgomery form, infinity = (1, 1, 0). ops/curve_ops.pack_points moves
-    it onto a device."""
+    """Points of a base-field curve (BLS12-381 G1 at K = 24, secp256k1 at
+    K = 16), each as affine_ints takes it -> host Jacobian tuple (x, y, z)
+    uint32[N, K], Montgomery form, infinity = (1, 1, 0).
+    ops/curve_ops.pack_points moves it onto a device."""
     n = len(affs)
     xs = np.zeros((n, spec.K), dtype=np.uint32)
     ys = np.zeros((n, spec.K), dtype=np.uint32)
     zs = np.zeros((n, spec.K), dtype=np.uint32)
     one = int_to_limbs(spec.r_mod_p, spec.K)
-    for i, a in enumerate(affs):
+    for i, a in enumerate(map(affine_ints, affs)):
         if a is None:
             xs[i] = one
             ys[i] = one

@@ -1,15 +1,17 @@
 """Sample inputs for holding the kernels against their plain versions:
 random canonical field elements, the adversarial corner residues of the JAX
 package's parity tests (alone, and spread over random rows for the
-static-exponent chain), G1 point pairs in every case class of the complete
-addition, and pairs laid out as an up-sweep level. Used by chip_smoke.py,
-kernel_variants.py and tests/test_torch_kernels.py."""
+static-exponent chain), point pairs of BLS12-381 G1 (K = 24) or secp256k1
+(K = 16) in every case class of the complete addition, and pairs laid out
+as an up-sweep level. Used by chip_smoke.py, kernel_variants.py and
+tests/test_torch_kernels.py."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from zk_toolkit_tpu_torch.curves import secp256k1
 from zk_toolkit_tpu_torch.curves.bls12_381 import params
 from zk_toolkit_tpu_torch.ops import curve_ops as C
 from zk_toolkit_tpu_torch.ops import limbs as L
@@ -52,16 +54,22 @@ def chain_inputs(rng, n: int, spec, dev) -> torch.Tensor:
     return a
 
 
-def point_pairs(rng, n: int, dev, generic_only: bool = False):
-    """P, Q Jacobian batches over 64 host points k*G, each row a random
-    representative (x l^2, y l^3, l) made with the plain multiply. Unless
-    generic_only, rows cycle through the case classes by row % 8: 0 P == Q
-    (another representative), 1 P == -Q, 2 P = inf, 3 Q = inf, 4 both inf,
-    else generic."""
-    spec = L.field_spec(params.Q)
+# Each curve's base field and generator (affine ints).
+CURVES = {"bls12_381_g1": (params.Q, (params.G1_X, params.G1_Y)),
+          "secp256k1": (secp256k1.P, (secp256k1.GX, secp256k1.GY))}
+
+
+def point_pairs(rng, n: int, dev, generic_only: bool = False, curve: str = "bls12_381_g1"):
+    """P, Q Jacobian batches over 64 host points k*G of `curve` (CURVES),
+    each row a random representative (x l^2, y l^3, l) made with the plain
+    multiply. Unless generic_only, rows cycle through the case classes by
+    row % 8: 0 P == Q (another representative), 1 P == -Q, 2 P = inf,
+    3 Q = inf, 4 both inf, else generic. Every limb is canonical."""
+    modulus, gen = CURVES[curve]
+    spec = L.field_spec(modulus)
     mul = lambda a, b: L.mont_mul_plain(a, b, spec)
     ks = [int(x) for x in np.random.default_rng(99).integers(1, 1 << 62, 64)]
-    bx, by, _ = C.pack_points([HC.g1_mul_affine(k) for k in ks], spec, device=dev)
+    bx, by, _ = C.pack_points(HC.multi_mul(HC.FpHost(modulus), gen, ks), spec, device=dev)
     ip = torch.from_numpy(rng.integers(0, 64, n)).to(dev)
     iq = (ip + torch.from_numpy(rng.integers(1, 64, n)).to(dev)) % 64
 
