@@ -1,26 +1,34 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (zk_toolkit_tpu_torch) on one NVIDIA
 GPU: builds the kernels from csrc/, holds each against its plain PyTorch
-version on the card (B1's static-exponent chain, and B1 at the NTT, SpMV
-and Fq2 shapes of the Groth16 prove, too), drives the 2^20-point
-BLS12-381 G1 MSM through the port's bench entry point with the known-dlog
-check (phase `slice`), then the Groth16 prove and verify at 2^16
-constraints through bench_groth16 (phase `groth16`: every proof equal to
-the trapdoor's multiples of the generators, host_oracle_verify and the
-device verifier both accepting it and rejecting a tampered statement, B1,
-B2 and B3 each launched inside one prove and inside one verify), the
-batched optimal-ate pairing (phase `pairing`: bench_pairing at B = 256
-against the host optimal-ate, bench_field_muls, entry()'s Miller loop on
-the kernels equal limb for limb to the same loop on the plain versions),
-Pinocchio at 2^16 constraints (phase `pinocchio`: bench_pinocchio, the
-nine proof elements equal to their trapdoor multiples, the device verifier
-accepting and rejecting a wrong statement, B1, B2 and B3 each launched
-inside one prove), and the secp256k1 tier at K = 16 (phase `secp256k1`:
-bench_ipa at 2^10 accepting the true statement and rejecting P + G,
-bench_range_proof at 64 bits accepting v < 2^64 and rejecting a flipped
-bit, bench_ecdsa at 4096 signatures verifying every row, rejecting the bad
-rows and matching the host's (r, s); B1, B2 and B3 each launched inside one
-IPA and inside one ECDSA verify), and prints:
+version on the card (B1's static-exponent chain, B1 at the NTT, SpMV and
+Fq2 shapes of the Groth16 prove, and B1 at q25519 on rows in [q, 2^255),
+too), drives the 2^20-point BLS12-381 G1 MSM through the port's bench entry
+point with the known-dlog check (phase `slice`), then the Groth16 prove and
+verify at 2^16 constraints through bench_groth16 (phase `groth16`: every
+proof equal to the trapdoor's multiples of the generators,
+host_oracle_verify and the device verifier both accepting it and rejecting
+a tampered statement, B1, B2 and B3 each launched inside one prove and
+inside one verify), the batched optimal-ate pairing (phase `pairing`:
+bench_pairing at B = 256 against the host optimal-ate, one timed batch,
+bench_field_muls, entry()'s Miller loop on the kernels equal limb for limb
+to the same loop on the plain versions), Pinocchio at 2^16 constraints
+(phase `pinocchio`: bench_pinocchio, the nine proof elements equal to their
+trapdoor multiples, the device verifier accepting and rejecting a wrong
+statement, B1, B2 and B3 each launched inside the bench's one prove, which
+is counted), and the secp256k1 tier at K = 16 (phase `secp256k1`: bench_ipa
+at 2^10 accepting the true statement and rejecting P + G, bench_range_proof
+at 64 bits accepting v < 2^64 and rejecting a flipped bit, bench_ecdsa at
+4096 signatures verifying every row, rejecting the bad rows and matching
+the host's (r, s); B1, B2 and B3 each launched inside one IPA and inside
+one ECDSA verify), and the signature tier (phase `signatures`:
+bench_ed25519 at 4096 signatures of 96-byte messages, the sampled keys and
+signatures equal to the host Ed25519Sha512's, every row verifying and the
+five bad rows of bench.ED25519_BAD_ROWS rejected; bench_bls at 64
+signatures, every row verifying and the four bad rows of bench.BLS_BAD_ROWS
+rejected; B1 launched, and B2 and B3 not, inside the Ed25519 sign, the
+Ed25519 verify and the BLS verify, each counted on its bench's untimed
+first call), and prints:
 
   phase lines, each with its seconds;
   the prove's seconds, stage split, launches by kernel and batch, peak
@@ -28,7 +36,8 @@ IPA and inside one ECDSA verify), and prints:
     pairing batch and the Pinocchio prove and verify: seconds, launches by
     kernel and batch, plain add/sub/neg calls, _norm calls and host syncs
     (count_path), peak memory; the same for the IPA, the range proof and
-    the ECDSA verify, with keygen, sign and verify seconds;
+    the ECDSA verify, with keygen, sign and verify seconds, and for the
+    Ed25519 sign, the Ed25519 verify and the BLS verify;
   a `kernels` JSON line: per kernel its route, source, the TPU kernel it
     replaces, launches over the MSM run and the prove run together (and by
     path in `launches_by_path`), the largest limb difference from
@@ -49,8 +58,11 @@ IPA and inside one ECDSA verify), and prints:
     (54 x 256 rows), and B1's chain at the 256 rows of bench_pairing's Fq12
     inverse; and the secp256k1 tier's at K = 16: B2 and B3 on the 2048
     points of the first IPA fold and on one point (_single_mul), B1's
-    product and chain mod n at the 4096 rows of bench_ecdsa; each timing
-    entry carries its launches on each path;
+    product and chain mod n at the 4096 rows of bench_ecdsa; and the
+    signature tier's, B1 at K = 16 mod q25519 = 2^255 - 19: the product at
+    the Edwards stack of 4 x 4096 rows and on a stride-0 constant at 4096,
+    the chain at 4096 rows for the inverse and the decode's square root;
+    each timing entry carries its launches on each path;
   the card's name and power limit as nvidia-smi prints them;
   last, {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -114,6 +126,9 @@ UPSWEEP_PAIRS = 1 << 22
 # values, bench_pairing B = 256.
 FQ12_STACKS = ((1, 4), (256,))
 PAIRING_B = 256
+# Timed batches of bench_pairing after its counted first one (its default 3
+# cut to 1 to make room in the script's 1200 s for phase signatures).
+PAIRING_REPS = 1
 PINOCCHIO_LOG2_N = 16
 # The secp256k1 tier: the IPA at bench.py:bench_ipa's 2^10, the 64-bit
 # range proof, ECDSA over 4096 signatures; the first IPA fold's scalar_mul
@@ -122,14 +137,31 @@ IPA_LOG2_N = 10
 RANGE_BITS = 64
 ECDSA_B = 4096
 IPA_FOLD_POINTS = 2 << IPA_LOG2_N
+# The signature tier: Ed25519 over 4096 signatures of 96-byte messages
+# (bench_ed25519) and BLS over 64 (bench_bls, one Ethereum slot's
+# committees). Edwards products go to B1 at K = 16 mod q25519 as stacks of
+# 4 x 4096 rows, its inverses and square roots as 4096-row chains. A decode
+# gives B1 the y of an encoding as read, so values in [q, 2^255) too.
+Q25519 = 2**255 - 19
+Q25519_ABOVE_P = (Q25519, Q25519 + 1, 2**255 - 1)
+Q25519_SQRT_BITS = tuple(int(b) for b in bin((Q25519 + 3) // 8)[2:])
+ED25519_B = 4096
+EDWARDS_STACK = 4 * ED25519_B
+BLS_B = 64
+ED25519_SUB_PATHS = (f"ed25519_sign_{ED25519_B}", f"ed25519_verify_{ED25519_B}")
 # Each phase's limit is at least twice the longest time measured for it on
 # an H100: build 24, parity 79.4, slice 8.6, groth16 189.9, pairing 67.4
 # (counting on bench_pairing's first batch), pinocchio 217.7, secp256k1
 # 18.8 s. The sum, 1215 s, is above the script's 1200 s: on the slowest
 # host seen the script takes about 600 s, and no smaller depth shrinks these
 # phases (they are host-bound on per-call counts that do not depend on n).
-PHASE_LIMIT_S = {"build": 48, "parity": 160, "slice": 18, "groth16": 380, "pairing": 135,
-                 "pinocchio": 436, "secp256k1": 38}
+# Each phase's limit is at least twice the longest time measured for it on
+# an H100 80GB HBM3 at 700 W since its content last changed (PERF.md):
+# build 24, parity 84.0, slice 8.6, groth16 189.9, pairing 36.1 (one timed
+# batch), pinocchio 153.9 (the bench's one prove, counted), secp256k1 18.8
+# and signatures 59.0 s; the limits sum to 1193 s, inside the script's 1200.
+PHASE_LIMIT_S = {"build": 48, "parity": 188, "slice": 18, "groth16": 380, "pairing": 80,
+                 "pinocchio": 311, "secp256k1": 38, "signatures": 130}
 
 
 class PhaseTimeout(Exception):
@@ -245,12 +277,49 @@ def _record(res: dict, name: str, got, want) -> None:
     res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
 
 
+def q25519_parity(dev, res: dict) -> None:
+    """B1 at q25519 (K = 16), the Edwards field, against its plain version
+    (into res, as parity_and_timing), from its own rng: the product at every
+    batch of BATCHES and at 4096 rows on the corner rows with the unreduced
+    values of Q25519_ABOVE_P first, and on an expanded (stride-0) right
+    operand, as the Edwards constants and tiled bases reach it; the chain at
+    every batch of CHAIN_BATCHES for q - 2, (q+3)/8, 1, 101b and 402 bits."""
+    from zk_toolkit_tpu_torch.ops import limbs as L
+    from zk_toolkit_tpu_torch.utils import samples as S
+
+    record = functools.partial(_record, res)
+    before = res["mont_mul"]["mismatches"]
+    launches = L._mont_mul_fused.launches
+    q25, rng25 = L.field_spec(Q25519), np.random.default_rng(2027)
+    long25 = (1,) + tuple(int(b) for b in rng25.integers(0, 2, 401))
+    for n in BATCHES + (ED25519_B,):
+        a, b = S.corner_pairs(rng25, n, q25, dev, above_p=Q25519_ABOVE_P)
+        c = b[-1:].expand(n, q25.K)
+        for x, y in ((a, b), (a, c)):
+            record("mont_mul", (L._mont_mul_fused(x, y, q25),), (L.mont_mul_plain(x, y, q25),))
+    for n in CHAIN_BATCHES:
+        a = S.chain_inputs(rng25, n, q25, dev)
+        for bits in (q25.p_minus_2_bits, Q25519_SQRT_BITS, (1,), (1, 0, 1), long25):
+            record("mont_mul", (L.mont_pow_static(a, bits, q25),),
+                   (L.mont_pow_static_plain(a, bits, q25),))
+    torch.cuda.synchronize()
+    launches = L._mont_mul_fused.launches - launches
+    want_launches = 2 * (len(BATCHES) + 1) + len(CHAIN_BATCHES) * (1 + 1 + 1 + 1 + 2)
+    if launches != want_launches:
+        raise RuntimeError(f"q25519 parity made {launches} B1 launches, expected {want_launches}")
+    print(f"parity of B1 at q25519 = 2^255 - 19 (K = 16): products at {list(BATCHES)} and "
+          f"{ED25519_B} (rows in [q, 2^255) included; also on a stride-0 operand), chains at "
+          f"{list(CHAIN_BATCHES)} for q - 2, (q+3)/8, 1, 101b and {len(long25)} bits: "
+          f"{res['mont_mul']['mismatches'] - before} mismatching rows", flush=True)
+
+
 def parity_and_timing(dev) -> dict:
     """Each kernel against its plain version on the card at every batch of
     BATCHES (tolerance 0): B1's product on three fields, B2 on contiguous and
     on up-sweep (strided) views, B3 at every r of DOUBLINGS; B1's chain at
     every batch of CHAIN_BATCHES on three fields for the exponents p - 2,
-    1, 101b and one of 402 bits (two launches), zero rows included. Then each
+    1, 101b and one of 402 bits (two launches), zero rows included; B1 at
+    q25519 (q25519_parity). Then each
     is timed at its main-path batch, B1 also as the product at 8192 rows,
     the inverse of one element and the product at 2^20 rows of Fr and Fq, B2
     also at a 2^22-pair up-sweep level (checked against the plain result of
@@ -306,6 +375,8 @@ def parity_and_timing(dev) -> dict:
               f"{name} {res[name]['mismatches'] - b} mismatching rows"
               for name, b in before.items()),
           flush=True)
+
+    q25519_parity(dev, res)
 
     long_exp = (1,) + tuple(int(b) for b in rng.integers(0, 2, 401))
     before = res["mont_mul"]["mismatches"]
@@ -543,6 +614,7 @@ def secp256k1_timing(dev, res: dict) -> None:
     res["mont_mul"]["timings"].append(timed(
         lambda: L._mont_mul_fused(a, b, fn), lambda: L.mont_mul_plain(a, b, fn), 200, 5,
         n * 3 * word, n * imad(k, 1, 0), batch=n, K=k, entry="mont_mul", count_key=f"K={k} {n}",
+        paths=(f"ecdsa_verify_{ECDSA_B}",),
         what="product mod the secp256k1 order n (bench_ecdsa's rows)"))
     bits = fn.p_minus_2_bits
     record("mont_mul", (L.mont_inv(a, fn),), (L.mont_inv_plain(a, fn),))
@@ -579,6 +651,76 @@ def secp256k1_paths(dev) -> dict:
     require_all_launched(counts["ipa"]["launches"], "one IPA")
     require_all_launched(counts["verify"]["launches"], "one ECDSA verify")
     out["counts"] = counts
+    return out
+
+
+def signature_timing(dev, res: dict) -> None:
+    """B1 at K = 16 mod q25519 at the signature tier's shapes, held against
+    its plain version (into res, as parity_and_timing) and timed, the
+    entries appended to res["mont_mul"]["timings"]: the product at the
+    Edwards stack of 4 x 4096 rows, the 2d T1 T2 product of 4096 rows on a
+    stride-0 constant, and the chain at 4096 rows for the inverse (q - 2) and
+    the decode's square root ((q+3)/8)."""
+    from zk_toolkit_tpu_torch.ops import limbs as L
+    from zk_toolkit_tpu_torch.utils import samples as S
+
+    record = functools.partial(_record, res)
+    rng = np.random.default_rng(2028)
+    q25 = L.field_spec(Q25519)
+    k = q25.K
+    word = 4 * k
+    for rows, b_rows, what in ((EDWARDS_STACK, EDWARDS_STACK, "product, the Edwards stack "
+                                f"[4, {ED25519_B}, 16] of a unified add"),
+                               (ED25519_B, 1, f"product [{ED25519_B}, 16] x a stride-0 "
+                                "constant (2d T1 T2)")):
+        a = S.random_field(rng, rows, q25, dev)
+        b = S.random_field(rng, b_rows, q25, dev).expand(rows, k)
+        record("mont_mul", (L._mont_mul_fused(a, b, q25),), (L.mont_mul_plain(a, b, q25),))
+        res["mont_mul"]["timings"].append(timed(
+            lambda: L._mont_mul_fused(a, b, q25), lambda: L.mont_mul_plain(a, b, q25), 200, 5,
+            (2 * rows + b_rows) * word, rows * imad(k, 1, 0), batch=rows, K=k,
+            entry="mont_mul", count_key=f"K={k} {rows}", paths=ED25519_SUB_PATHS,
+            what=f"q25519, {what}"))
+    a = S.random_field(rng, ED25519_B, q25, dev)
+    for bits, what in ((q25.p_minus_2_bits, "mont_inv (to_affine, the decode's 1/v)"),
+                       (Q25519_SQRT_BITS, "the decode's square root, exponent (q+3)/8")):
+        record("mont_mul", (L.mont_pow_static(a, bits, q25),),
+               (L.mont_pow_static_plain(a, bits, q25),))
+        res["mont_mul"]["timings"].append(timed(
+            lambda: L.mont_pow_static(a, bits, q25), lambda: L.mont_pow_static_plain(a, bits, q25),
+            20, 1, ED25519_B * 2 * word, ED25519_B * imad(k, sum(bits), len(bits)),
+            batch=ED25519_B, K=k, entry="mont_pow", count_key=f"K={k} {ED25519_B} x r={len(bits)}",
+            paths=ED25519_SUB_PATHS, what=f"q25519, chain at {ED25519_B} rows: {what}"))
+    torch.cuda.synchronize()
+
+
+def signature_paths(dev) -> dict:
+    """bench_ed25519 at ED25519_B and bench_bls at BLS_B, each under
+    path_run, with the Ed25519 sign, the Ed25519 verify and the BLS verify
+    counted on their untimed first calls (count_path); their refusals raise.
+    B1 must launch in each of the three, B2 and B3 in none (the Edwards law
+    and the pairing run no Weierstrass kernel)."""
+    from zk_toolkit_tpu_torch.bench import bench_bls, bench_ed25519
+
+    counts = {"ed25519": {}, "bls": {}}
+
+    def ed25519(d):
+        return bench_ed25519(ED25519_B, d, observe=observing(counts["ed25519"]))
+
+    def bls(d):
+        return bench_bls(BLS_B, d, observe=observing(counts["bls"]))
+
+    out = {f"ed25519_{ED25519_B}": path_run(ed25519, dev, ("mont_mul",)),
+           f"bls_{BLS_B}": path_run(bls, dev, ("mont_mul",))}
+    out["counts"] = {ED25519_SUB_PATHS[0]: counts["ed25519"]["sign"],
+                     ED25519_SUB_PATHS[1]: counts["ed25519"]["verify"],
+                     f"bls_verify_{BLS_B}": counts["bls"]["verify"]}
+    for what, c in out["counts"].items():
+        per = c["launches"]
+        if not sum(sum(per.get(e, {}).values()) for e in ("mont_mul", "mont_pow")):
+            raise RuntimeError(f"B1 not launched inside {what}")
+        if per.get("point_add") or per.get("point_double"):
+            raise RuntimeError(f"B2/B3 launched inside {what}, which has no Weierstrass law")
     return out
 
 
@@ -752,7 +894,8 @@ def pairing_run(dev) -> dict:
     from zk_toolkit_tpu_torch.ops import pairing_ops as P
 
     counts = {}
-    out = {"bench_pairing": bench_pairing(PAIRING_B, dev, observe=observing(counts))}
+    out = {"bench_pairing": bench_pairing(PAIRING_B, dev, reps=PAIRING_REPS,
+                                          observe=observing(counts))}
     out["bench_field_muls"] = bench_field_muls(device=dev)
     fn, args = entry(dev)
     t0 = time.perf_counter()
@@ -776,9 +919,9 @@ def pairing_run(dev) -> dict:
 def pinocchio_run(dev) -> dict:
     """bench_pinocchio at 2^16 constraints from a fresh CRS (its checks
     raise on a proof element that is not its trapdoor multiple or a wrong
-    verdict; its first, untimed verify instrumented), then one instrumented
-    prove (count_path)."""
-    from zk_toolkit_tpu_torch.bench import PINOCCHIO_DELTAS, bench_pinocchio, pinocchio_setup
+    verdict), its prove and its first, untimed verify instrumented
+    (count_path): prove_s is the instrumented prove's time."""
+    from zk_toolkit_tpu_torch.bench import bench_pinocchio, pinocchio_setup
     from zk_toolkit_tpu_torch.protocols import groth16_device as GD
 
     # crs_s as a fresh process pays it: the fixed-base tables the Groth16
@@ -791,8 +934,7 @@ def pinocchio_run(dev) -> dict:
     out = {"crs_peak_bytes": torch.cuda.max_memory_allocated(dev)}
     counts = {}
     out.update(bench_pinocchio(device=dev, setup=setup, observe=observing(counts)))
-    prover, crs = setup["prover"], setup["crs"]
-    out["prove_count"] = count_path(lambda: prover.prove_with_deltas(crs, *PINOCCHIO_DELTAS))
+    out["prove_count"] = counts["prove"]
     out["verify_count"] = counts["verify"]
     return out
 
@@ -1006,10 +1148,38 @@ def main() -> int:
         bad = {k: v["mismatches"] for k, v in stats.items() if v["mismatches"] or v["max_abs_err"]}
         if bad:
             raise RuntimeError(f"kernels disagree with their plain versions at K = 16: {bad}")
+    with phase("signatures"):
+        sg = signature_paths(dev)
+        sgc = sg.pop("counts")
+        ed, bl = (sg[k]["out"] for k in sg)
+        print(f"ed25519 B = {ED25519_B}, {ed['msg_bytes']}-byte messages: rows 0, "
+              f"{ED25519_B // 2}, {ED25519_B - 1} keys and signatures == host Ed25519Sha512, every "
+              f"row verifies, rows {', '.join(ed['rejects_bad_rows'])} rejected | keys "
+              f"{ed['keys_s']:.4f} s | sign_s {ed['sign_s']:.4f} s (first {ed['sign_first_s']:.3f} "
+              f"s, {ed['sign_per_s']:.1f} signatures/s) | verify_s {ed['verify_s']:.4f} s (first "
+              f"{ed['verify_first_s']:.3f} s, {ed['verify_per_s']:.1f} signatures/s) | peak "
+              f"{ed['peak_bytes'] / 2**30:.3f} GiB", flush=True)
+        print(f"bls B = {BLS_B}: every row verifies, rows {', '.join(bl['rejects_bad_rows'])} "
+              f"rejected | setup (host Signer) {bl['setup_s']:.3f} s | verify_s "
+              f"{bl['verify_s']:.4f} s (first {bl['verify_first_s']:.3f} s, "
+              f"{bl['verify_per_s']:.2f} verifications/s) | peak "
+              f"{bl['peak_bytes'] / 2**30:.3f} GiB", flush=True)
+        for what, c in sgc.items():
+            print(f"{what}: launches by batch " + json.dumps(c["launches"])
+                  + " | add/sub/neg, _norm, host syncs " + json.dumps(c["field_ops"])
+                  + f" | peak {c['peak_bytes'] / 2**30:.3f} GiB | instrumented run "
+                  f"{c['seconds_instrumented']:.2f} s", flush=True)
+        print("signatures result: " + json.dumps({k: v["out"] for k, v in sg.items()}), flush=True)
+        signature_timing(dev, stats)
+        print("signature kernel shapes (B1 at K = 16 mod q25519) == plain versions", flush=True)
+        bad = {k: v["mismatches"] for k, v in stats.items() if v["mismatches"] or v["max_abs_err"]}
+        if bad:
+            raise RuntimeError(f"kernels disagree with their plain versions at q25519: {bad}")
     by_path = {"msm_2^20": launches, "groth16_2^16": g16_launches,
                f"pairing_{PAIRING_B}": pr["launches"],
                f"pinocchio_2^{PINOCCHIO_LOG2_N}": pn["launches"],
-               **{path: v["launches"] for path, v in sp.items()}}
+               **{path: v["launches"] for path, v in sp.items()},
+               **{path: v["launches"] for path, v in sg.items()}}
     # launches at each timed shape, by path, from the instrumented runs
     shape_counts = {"groth16_prove": g16["launches_per_prove"],
                     "groth16_verify": g16["verify_count"]["launches"],
@@ -1018,14 +1188,18 @@ def main() -> int:
                     "pinocchio_verify": po["verify_count"]["launches"],
                     f"ipa_2^{IPA_LOG2_N}": sc["ipa"]["launches"],
                     f"range_{RANGE_BITS}": sc["range"]["launches"],
-                    f"ecdsa_verify_{ECDSA_B}": sc["verify"]["launches"]}
+                    f"ecdsa_verify_{ECDSA_B}": sc["verify"]["launches"],
+                    **{path: c["launches"] for path, c in sgc.items()}}
     kernels = []
     for name, source, replaces, _ in KERNELS:
         s = stats[name]
         for t in s["timings"]:
             if "count_key" in t:
-                t["launches_on_path"] = {path: c.get(t["entry"], {}).get(t["count_key"], 0)
-                                         for path, c in shape_counts.items()}
+                # a key names K and the batch, not the modulus: an entry whose
+                # shape two K = 16 fields share lists the paths of its own
+                paths = t.pop("paths", tuple(shape_counts))
+                t["launches_on_path"] = {path: shape_counts[path].get(t["entry"], {}).get(
+                    t["count_key"], 0) for path in paths}
         first = s["timings"][0]
         u = usage[first.get("entry", name)].get(12, {})
         kernels.append({

@@ -40,7 +40,13 @@ from zk_toolkit_tpu_torch.utils import host_curve as HC
 from zk_toolkit_tpu_torch.utils import samples as S
 
 SECP256K1_P = 0xFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFEFFFFFC2F
+Q25519 = 2**255 - 19
 BATCHES = (1, 255, 257, 513, 1025)
+FIELDS = [params.Q, params.R, SECP256K1_P, Q25519]
+FIELD_IDS = ["fq", "fr", "secp256k1", "q25519"]
+# Unreduced corner values B1 takes at q25519: the Ed25519 decode reads y
+# from the bytes of an encoding, so a rejected row can hold y in [q, 2^255).
+ABOVE_P = {Q25519: (Q25519, Q25519 + 1, 2**255 - 1)}
 
 
 @pytest.fixture
@@ -137,12 +143,12 @@ def test_plain_wrappers_never_launch_on_cpu():
 # -- on the card -------------------------------------------------------------------
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("p", [params.Q, params.R, SECP256K1_P], ids=["fq", "fr", "secp256k1"])
+@pytest.mark.parametrize("p", FIELDS, ids=FIELD_IDS)
 def test_mont_mul_kernel_matches_plain(card, p):
     spec = L.field_spec(p)
     rng = np.random.default_rng(5)
     for n in BATCHES:
-        a, b = S.corner_pairs(rng, n, spec, card)
+        a, b = S.corner_pairs(rng, n, spec, card, above_p=ABOVE_P.get(p, ()))
         before = L._mont_mul_fused.launches
         got = L.mont_mul(a, b, spec)
         assert L._mont_mul_fused.launches == before + 1
@@ -150,17 +156,19 @@ def test_mont_mul_kernel_matches_plain(card, p):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("p", [params.Q, params.R, SECP256K1_P], ids=["fq", "fr", "secp256k1"])
+@pytest.mark.parametrize("p", FIELDS, ids=FIELD_IDS)
 def test_mont_pow_chain_kernel_matches_plain_chain(card, p):
     """B1's chain entry against the plain chain of products: p - 2, a short
-    exponent and one of 402 bits (two launches), zero rows included; one
-    launch per 384 exponent bits."""
+    exponent and one of 402 bits (two launches), zero rows included, and at
+    q25519 the Ed25519 square root's (q+3)/8; one launch per 384 exponent
+    bits."""
     spec = L.field_spec(p)
     rng = np.random.default_rng(13)
     long_exp = (1,) + tuple(int(b) for b in rng.integers(0, 2, 401))
+    extra = (tuple(int(b) for b in bin((p + 3) // 8)[2:]),) if p == Q25519 else ()
     for n in BATCHES:
         a = S.chain_inputs(rng, n, spec, card)
-        for bits in (spec.p_minus_2_bits, (1, 0, 1), long_exp):
+        for bits in (spec.p_minus_2_bits, (1, 0, 1), long_exp) + extra:
             before = L._mont_mul_fused.launches
             got = L.mont_pow_static(a, bits, spec)
             assert L._mont_mul_fused.launches == before + len(L.exp_chunks(bits))
@@ -441,3 +449,45 @@ def test_ecdsa_verify_on_card_matches_cpu_plain(card):
     for g, w in zip(out["cuda"], out["cpu"]):
         assert torch.equal(g, w)
     assert out["cuda"][-1].tolist() == [False] * 5 + [True] * 3
+
+
+@pytest.mark.cuda
+def test_ed25519_on_card_matches_host_engine_and_cpu_plain(card):
+    """ed25519_sign_batch on the card equals the host Ed25519Sha512 byte for
+    byte (6 rows of 96-byte messages); ed25519_verify_batch on the card and
+    on CPU tensors gives the same mask on bench's bad batch (rows 0-4 of
+    ED25519_BAD_ROWS rejected); decode_points on the card equals the CPU
+    decode limb for limb, with y >= q and non-square rows among them."""
+    from zk_toolkit_tpu_torch import bench as B
+    from zk_toolkit_tpu_torch.ops import edwards_ops as E
+    from zk_toolkit_tpu_torch.ops import signature_ops as SIG
+    from zk_toolkit_tpu_torch.signatures.ed25519 import Ed25519Sha512
+
+    eng = Ed25519Sha512()
+    prv, msgs = B.ed25519_inputs(6)
+    sigs = SIG.ed25519_sign_batch(prv, msgs, card)
+    for i in range(6):
+        assert bytes(sigs[i]) == eng.sign(msgs[i].tobytes(), prv[i].tobytes())
+    pubs = np.stack([np.frombuffer(eng.gen_pub_key(k.tobytes()), dtype=np.uint8) for k in prv])
+    bad = B.ed25519_bad_batch(sigs, pubs, msgs)
+    want = [False] * 5 + [True]
+    assert SIG.ed25519_verify_batch(*bad, device=card).tolist() == want
+    assert SIG.ed25519_verify_batch(*bad, device="cpu").tolist() == want
+    encs = np.concatenate([bad[0][:, :32], bad[1]])
+    got, ok = E.decode_points(encs, card)
+    want_pt, want_ok = E.decode_points(encs, "cpu")
+    assert torch.equal(ok.cpu(), want_ok)
+    _equal(tuple(g.cpu() for g in got), want_pt)
+
+
+@pytest.mark.cuda
+def test_bls_verify_on_card_matches_cpu_plain(card):
+    """bls_verify_batch on the card and on CPU tensors over bench's bad batch
+    of 5 rows (rows 0-3 of BLS_BAD_ROWS rejected): the same mask."""
+    from zk_toolkit_tpu_torch import bench as B
+    from zk_toolkit_tpu_torch.ops import signature_ops as SIG
+
+    bad = B.bls_bad_batch(*B.bls_inputs(5))
+    want = [False] * 4 + [True]
+    assert SIG.bls_verify_batch(*bad, device=card).tolist() == want
+    assert SIG.bls_verify_batch(*bad, device="cpu").tolist() == want

@@ -55,7 +55,9 @@ def test_scan_sees_the_whole_port():
                    "utils/serialize.py", "entry.py", "bench.py", "curves/secp256k1.py",
                    "hashers/sha256.py", "hashers/sha512.py", "hashers/hmac.py",
                    "protocols/bulletproofs.py", "protocols/bulletproofs_device.py",
-                   "ops/signature_ops.py", "signatures/ecdsa.py"):
+                   "ops/signature_ops.py", "signatures/ecdsa.py", "ops/sha_ops.py",
+                   "ops/edwards_ops.py", "curves/curve25519.py", "signatures/ed25519.py",
+                   "signatures/bls.py"):
         assert f"zk_toolkit_tpu_torch/{module}" in names
     assert _forbidden("jax.numpy") and _forbidden("zk_toolkit_tpu.ops.limbs")
     assert not _forbidden("zk_toolkit_tpu_torch.ops.limbs")

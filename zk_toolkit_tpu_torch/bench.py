@@ -32,6 +32,13 @@ bit. bench_ecdsa: batched ECDSA keygen, sign and verify over 4096
 signatures, refused unless every row verifies, the bad rows are rejected
 and sampled rows equal the host's equations.
 
+bench_ed25519: batched RFC 8032 sign and verify over 4096 signatures of
+96-byte messages, refused unless sampled keys and signatures equal the host
+Ed25519Sha512's, every true row verifies and the five bad rows are
+rejected. bench_bls: batched BLS verification over 64 signatures (one
+Ethereum slot's committees), refused unless every true row verifies and the
+four bad rows are rejected.
+
 Run on a card: python -m zk_toolkit_tpu_torch.bench [log2_n]   (the MSM)
                python -m zk_toolkit_tpu_torch.bench groth16 [log2_n]
                python -m zk_toolkit_tpu_torch.bench pairing [b]
@@ -40,6 +47,8 @@ Run on a card: python -m zk_toolkit_tpu_torch.bench [log2_n]   (the MSM)
                python -m zk_toolkit_tpu_torch.bench ipa [log2_n]
                python -m zk_toolkit_tpu_torch.bench range [n]
                python -m zk_toolkit_tpu_torch.bench ecdsa [b]
+               python -m zk_toolkit_tpu_torch.bench ed25519 [b]
+               python -m zk_toolkit_tpu_torch.bench bls [b]
 """
 
 from __future__ import annotations
@@ -519,11 +528,12 @@ def pinocchio_setup(log2_n: int = 16, device="cuda") -> dict:
 def bench_pinocchio(log2_n: int = 16, device="cuda", setup: dict | None = None,
                     observe=None) -> dict:
     """The Pinocchio CRS (pinocchio_setup, or `setup`), one prove at
-    PINOCCHIO_DELTAS (prove_s, host clock after a synchronise) checked by
-    check_pinocchio_proof, then check_device_verify: the device verifier
-    accepts the proof twice (verify_s: the second call; the first under
-    observe("verify", ...) when given) and rejects a tampered statement.
-    peak_bytes: the card's peak over the prove."""
+    PINOCCHIO_DELTAS (prove_s, host clock after a synchronise; under
+    observe("prove", ...) when given, so then an instrumented prove's time)
+    checked by check_pinocchio_proof, then check_device_verify: the device
+    verifier accepts the proof twice (verify_s: the second call; the first
+    under observe("verify", ...) when given) and rejects a tampered
+    statement. peak_bytes: the card's peak over the prove."""
     from zk_toolkit_tpu_torch.protocols.pinocchio_device import DevicePinocchioVerifier
 
     dev = resolve_device(device)
@@ -531,7 +541,8 @@ def bench_pinocchio(log2_n: int = 16, device="cuda", setup: dict | None = None,
         setup = pinocchio_setup(log2_n, dev)
     mat, crs, prover = setup["mat"], setup["crs"], setup["prover"]
     _reset_peak(dev)
-    proof, prove_s = _timed(dev, lambda: prover.prove_with_deltas(crs, *PINOCCHIO_DELTAS))
+    proof, prove_s = _timed(dev, lambda: _run(
+        observe, "prove", lambda: prover.prove_with_deltas(crs, *PINOCCHIO_DELTAS)))
     out = {"n_constraints": mat.n, "n_pad": mat.n_pad, "m": mat.m, "l": mat.l,
            "crs_s": setup["crs_s"], "prove_s": prove_s, **_peak(dev)}
     check_pinocchio_proof(prover, proof)
@@ -774,12 +785,154 @@ def bench_ecdsa(b: int = 4096, device="cuda", observe=None) -> dict:
             "sign_per_s": b / sign_s, "verify_per_s": b / verify_s, **_peak(dev)}
 
 
+# -- the signature tier: Ed25519 and BLS -----------------------------------------
+
+ED25519_MSG_BYTES = 96          # the r and k digests' inputs take two SHA-512 blocks
+# Rows of bench_ed25519's bad batch, each rejected for one reason.
+ED25519_BAD_ROWS = ("flipped message byte", "S + l", "R not a point (y = 2)", "A with y >= q",
+                    "R of another row")
+
+
+def ed25519_inputs(b: int):
+    """b private keys (uint8 [b, 32]) and messages (uint8 [b, 96]) from
+    default_rng(12)."""
+    rng = np.random.default_rng(12)
+    return (rng.integers(0, 256, size=(b, 32), dtype=np.uint8),
+            rng.integers(0, 256, size=(b, ED25519_MSG_BYTES), dtype=np.uint8))
+
+
+def ed25519_bad_batch(sigs, pubs, msgs):
+    """Copies of a signed batch with rows 0-4 made bad, one per reason of
+    ED25519_BAD_ROWS."""
+    from zk_toolkit_tpu_torch.curves import curve25519 as ed
+
+    sigs, pubs, msgs = sigs.copy(), pubs.copy(), msgs.copy()
+    msgs[0, 0] ^= 1
+    s = int.from_bytes(sigs[1, 32:].tobytes(), "little") + ed.L
+    sigs[1, 32:] = np.frombuffer(s.to_bytes(32, "little"), dtype=np.uint8)
+    sigs[2, :32] = np.frombuffer((2).to_bytes(32, "little"), dtype=np.uint8)
+    pubs[3] = np.frombuffer((ed.Q + 1).to_bytes(32, "little"), dtype=np.uint8)
+    sigs[4, :32] = sigs[5, :32]
+    return sigs, pubs, msgs
+
+
+def bench_ed25519(b: int = 4096, device="cuda", observe=None) -> dict:
+    """Batched Ed25519 over b signatures of 96-byte messages: the public
+    keys from the port's device calls (keys_s: the key expansion, scalar_mul
+    of B and encode_points, as ed25519_sign_batch makes them), sign (a first
+    call under observe("sign", ...) when given, then the timed sign_s), then
+    verify: a first call (under observe("verify", ...)) on a copy with rows
+    0-4 made bad (ED25519_BAD_ROWS) must reject exactly those rows, and the
+    timed call on the true batch (verify_s) must accept every row. Refuses
+    to report unless, besides, both signs agree and the first, middle and
+    last rows' keys and signatures equal the host Ed25519Sha512's."""
+    from zk_toolkit_tpu_torch.ops import signature_ops as SIG
+    from zk_toolkit_tpu_torch.signatures.ed25519 import Ed25519Sha512
+
+    if b <= len(ED25519_BAD_ROWS):
+        raise ValueError(f"b must exceed the {len(ED25519_BAD_ROWS)} bad rows")
+    dev = resolve_device(device)
+    prv, msgs = ed25519_inputs(b)
+    _reset_peak(dev)
+    pubs, keys_s = _timed(dev, lambda: SIG._base_mul_encoded(SIG._expand_keys(prv, dev)[0], dev))
+    sigs, sign_first_s = _timed(dev, lambda: _run(
+        observe, "sign", lambda: SIG.ed25519_sign_batch(prv, msgs, dev)))
+    again, sign_s = _timed(dev, lambda: SIG.ed25519_sign_batch(prv, msgs, dev))
+    if not np.array_equal(sigs, again):
+        raise RuntimeError("ed25519_sign_batch flipped on re-run — refusing to report")
+    eng = Ed25519Sha512()
+    for i in sorted({0, b // 2, b - 1}):
+        if bytes(pubs[i]) != eng.gen_pub_key(prv[i].tobytes()):
+            raise RuntimeError(f"public key {i} differs from the host engine's — "
+                               "refusing to report")
+        if bytes(sigs[i]) != eng.sign(msgs[i].tobytes(), prv[i].tobytes()):
+            raise RuntimeError(f"signature {i} differs from the host engine's — "
+                               "refusing to report")
+    bad = ed25519_bad_batch(sigs, pubs, msgs)
+    mask, verify_first_s = _timed(dev, lambda: _run(
+        observe, "verify", lambda: SIG.ed25519_verify_batch(*bad, dev)))
+    want = np.arange(b) >= len(ED25519_BAD_ROWS)
+    if not np.array_equal(mask, want):
+        wrong = np.flatnonzero(mask != want).tolist()
+        raise RuntimeError(f"ed25519_verify_batch is wrong on rows {wrong[:8]} of the bad batch "
+                           f"(rows 0-4: {', '.join(ED25519_BAD_ROWS)}) — refusing to report")
+    mask, verify_s = _timed(dev, lambda: SIG.ed25519_verify_batch(sigs, pubs, msgs, dev))
+    if not mask.all():
+        raise RuntimeError("ed25519_verify_batch rejects a valid signature — refusing to report")
+    return {"b": b, "msg_bytes": ED25519_MSG_BYTES, "host_engine_ok": True,
+            "rejects_bad_rows": list(ED25519_BAD_ROWS), "keys_s": keys_s,
+            "sign_first_s": sign_first_s, "sign_s": sign_s, "verify_first_s": verify_first_s,
+            "verify_s": verify_s, "sign_per_s": b / sign_s, "verify_per_s": b / verify_s,
+            **_peak(dev)}
+
+
+# Rows of bench_bls's bad batch: rows 0 and 1 hold each other's signature.
+BLS_BAD_ROWS = ("swapped signature", "swapped signature", "wrong message",
+                "public key of another row")
+
+
+def bls_inputs(b: int):
+    """b private keys from Rng(64), their public keys and the signatures of
+    the messages "committee-<i>", by the host Signer (the placeholder hash,
+    as in the reference)."""
+    from zk_toolkit_tpu_torch.signatures.bls import PrivateKey, Signer
+    from zk_toolkit_tpu_torch.utils.rng import Rng
+
+    signer, rng = Signer(), Rng(64)
+    sks = [PrivateKey(rng=rng) for _ in range(b)]
+    msgs = [f"committee-{i}".encode() for i in range(b)]
+    return msgs, [signer.sign(m, sk) for m, sk in zip(msgs, sks)], \
+        [signer.gen_public_key(sk) for sk in sks]
+
+
+def bls_bad_batch(msgs, sigs, pks):
+    """Copies of a signed batch with rows 0-3 made bad, as BLS_BAD_ROWS says."""
+    msgs, sigs, pks = list(msgs), list(sigs), list(pks)
+    sigs[0], sigs[1] = sigs[1], sigs[0]
+    msgs[2] = msgs[2] + b"!"
+    pks[3] = pks[4]
+    return msgs, sigs, pks
+
+
+def bench_bls(b: int = 64, device="cuda", observe=None) -> dict:
+    """Batched BLS verification over b signatures (64: the committees of one
+    Ethereum slot, each checked on its own). Keys and signatures from the
+    host Signer (setup_s). A first call (under observe("verify", ...) when
+    given) on a copy with rows 0-3 made bad (BLS_BAD_ROWS) must reject
+    exactly those rows; the timed call on the true batch (verify_s) must
+    accept every row."""
+    from zk_toolkit_tpu_torch.ops import signature_ops as SIG
+
+    if b <= len(BLS_BAD_ROWS):
+        raise ValueError(f"b must exceed the {len(BLS_BAD_ROWS)} bad rows")
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    msgs, sigs, pks = bls_inputs(b)
+    setup_s = time.perf_counter() - t0
+    bad = bls_bad_batch(msgs, sigs, pks)
+    _reset_peak(dev)
+    mask, verify_first_s = _timed(dev, lambda: _run(
+        observe, "verify", lambda: SIG.bls_verify_batch(*bad, device=dev)))
+    want = np.arange(b) >= len(BLS_BAD_ROWS)
+    if not np.array_equal(mask, want):
+        wrong = np.flatnonzero(mask != want).tolist()
+        raise RuntimeError(f"bls_verify_batch is wrong on rows {wrong[:8]} of the bad batch "
+                           f"(rows 0-3: {', '.join(BLS_BAD_ROWS)}) — refusing to report")
+    mask, verify_s = _timed(dev, lambda: SIG.bls_verify_batch(msgs, sigs, pks, device=dev))
+    if not mask.all():
+        raise RuntimeError("bls_verify_batch rejects a valid signature — refusing to report")
+    return {"b": b, "rejects_bad_rows": list(BLS_BAD_ROWS), "setup_s": setup_s,
+            "verify_first_s": verify_first_s, "verify_s": verify_s, "verify_per_s": b / verify_s,
+            **_peak(dev)}
+
+
 if __name__ == "__main__":
     args = sys.argv[1:]
     benches = {"groth16": (bench_groth16, 16), "pairing": (bench_pairing, 256),
                "field_muls": (bench_field_muls, 16), "pinocchio": (bench_pinocchio, 16),
                "ipa": (bench_ipa, 10), "range": (bench_range_proof, 64),
-               "ecdsa": (bench_ecdsa, 4096)}
+               "ecdsa": (bench_ecdsa, 4096), "ed25519": (bench_ed25519, 4096),
+               "bls": (bench_bls, 64)}
     if args and args[0] in benches:
         fn, default = benches[args[0]]
         print(json.dumps(fn(int(args[1]) if len(args) > 1 else default)))

@@ -6,8 +6,8 @@ the port imports nothing of the JAX package.)
 Parity: reference curves/bls12_381/g2_point.rs — generator constants
 (:36-46), `is_on_curve` with b = four.reduce() (:76-81), and the
 `hash_to_g2point` placeholder (g2 * scalar from BE message bytes, :83-88 —
-explicitly not a real hash-to-curve in the reference). The JAX package's
-`hash_to_g2point_swu` needs its hashers, which the port has not taken yet.
+explicitly not a real hash-to-curve in the reference; `hash_to_g2point_swu`
+below is the proper mcl-equivalent).
 """
 
 from __future__ import annotations
@@ -57,3 +57,83 @@ def hash_to_g2point(buf: bytes) -> AffinePoint:
     (g2_point.rs:83-88). Kept for bit-exact compatibility."""
     n = int.from_bytes(bytes(buf), "big") % params.R
     return g() * n
+
+
+def hash_to_g2point_swu(buf: bytes, dst: bytes = b"ZK_TOOLKIT_TPU_BLS_SIG_V1") -> AffinePoint:
+    """Proper hash-to-G2 (the mcl `hash_and_map` equivalent,
+    reference: mcl/mcl_g2.rs:41-46): hash-and-check with SHA-256 counter mode.
+
+    Deterministic try-and-increment: derive Fq2 x-candidates from
+    SHA-256(dst || counter || msg) until x^3 + b is a square in Fq2, then
+    clear the cofactor. Not constant-time (signing hashes are public inputs).
+    """
+    from zk_toolkit_tpu_torch.hashers.sha256 import Sha256
+    from zk_toolkit_tpu_torch.curves.bls12_381.tower import fq1
+
+    q = params.Q
+    # G2 cofactor (standard BLS12-381 value)
+    h2 = int(
+        "5d543a95414e7f1091d50792876a202cd91de4547085abaa68a205b2e5a7ddfa"
+        "628f1cb4d9e82ef21537e293a6691ae1616ec6e786f0c70cf1c38e31c7238e5",
+        16,
+    )
+    ctr = 0
+    while True:
+        seed = Sha256.get_digest(dst + ctr.to_bytes(4, "big") + bytes(buf))
+        seed2 = Sha256.get_digest(seed)
+        # build two Fq coordinates from 64 bytes of hash output each
+        c0 = int.from_bytes(seed + seed2, "big") % q
+        seed3 = Sha256.get_digest(seed2)
+        seed4 = Sha256.get_digest(seed3)
+        c1 = int.from_bytes(seed3 + seed4, "big") % q
+        x = Fq2(fq1(c1), fq1(c0))
+        rhs = x * x * x + CURVE.b
+        y = _fq2_sqrt(rhs)
+        if y is not None:
+            p = CURVE.point(x, y) * h2  # clear cofactor into the r-subgroup
+            if not p.is_zero():
+                return p
+        ctr += 1
+
+
+def _fq2_sqrt(a: Fq2) -> Fq2 | None:
+    """Square root in Fq2 via the norm/trace method (complex method for
+    q = 3 mod 4): sqrt(a0 + a1 u) from sqrt of the norm in Fq."""
+    from zk_toolkit_tpu_torch.curves.bls12_381.tower import fq1
+
+    q = params.Q
+    a0, a1 = a.u0.e, a.u1.e
+    if a1 == 0:
+        s = _fq_sqrt(a0)
+        if s is not None:
+            return Fq2(fq1(0), fq1(s))
+        # a0 is a non-residue: sqrt(a0) = sqrt(-a0) * u since u^2 = -1
+        s = _fq_sqrt((-a0) % q)
+        if s is None:
+            return None
+        return Fq2(fq1(s), fq1(0))
+    norm = (a0 * a0 + a1 * a1) % q
+    n = _fq_sqrt(norm)
+    if n is None:
+        return None
+    inv2 = pow(2, -1, q)
+    x0 = (a0 + n) % q * inv2 % q
+    s0 = _fq_sqrt(x0)
+    if s0 is None:
+        x0 = (a0 - n) % q * inv2 % q
+        s0 = _fq_sqrt(x0)
+        if s0 is None:
+            return None
+    # y = s0 + (a1 / (2 s0)) u
+    y1 = a1 * pow(2 * s0 % q, -1, q) % q
+    return Fq2(fq1(y1), fq1(s0))
+
+
+def _fq_sqrt(a: int) -> int | None:
+    """Square root mod q (q = 3 mod 4): a^((q+1)/4)."""
+    q = params.Q
+    a %= q
+    if a == 0:
+        return 0
+    s = pow(a, (q + 1) // 4, q)
+    return s if s * s % q == a else None

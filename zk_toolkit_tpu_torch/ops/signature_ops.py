@@ -1,16 +1,21 @@
 """Batched signature operations on a device (the port of
-zk_toolkit_tpu/ops/signature_ops.py): its ECDSA half over secp256k1.
+zk_toolkit_tpu/ops/signature_ops.py): ECDSA over secp256k1, Ed25519 (RFC
+8032) and BLS verification over BLS12-381.
 
 Each routine is the reference algorithm restructured so that every group
-and field operation runs as one batched operation over all signatures: the
-scalar multiplications on kernels B2/B3, the products and inverses on B1 at
-K = 16 limbs. Host code only packs bytes. The nonce k is an argument, so
-runs replay exactly. Every input is batched on its leading axis and the
-results stay on its device.
+and field operation runs as one batched operation over all signatures.
+Host code only packs bytes and per-row integers. The nonce k of ECDSA is an
+argument, so runs replay exactly.
 
-Not ported yet: the Ed25519 half of the JAX module (its :149-233) needs
-ops/edwards_ops.py and ops/sha_ops.py, and its BLS half (:236-257) needs
-g2.hash_to_g2point_swu; both come with the next slice.
+- ECDSA: the scalar multiplications on kernels B2/B3, the products and
+  inverses mod n on B1 at K = 16 limbs. Every input is batched on its
+  leading axis and the results stay on its device.
+- Ed25519: SHA-512 batched on the device (ops/sha_ops.py), the unified
+  Edwards law and the point codec (ops/edwards_ops.py), whose products and
+  inverses run on B1 at K = 16 mod q = 2^255 - 19. Byte batches are numpy
+  uint8 arrays in and out; `device` picks where they are computed.
+- BLS: one batched pairing product (ops/pairing_ops.py, B1 at K = 24) over
+  B rows of 2 pairs.
 """
 
 from __future__ import annotations
@@ -20,10 +25,15 @@ import functools
 import numpy as np
 import torch
 
+from zk_toolkit_tpu_torch import resolve_device
+from zk_toolkit_tpu_torch.curves import curve25519 as ed25519_curve
 from zk_toolkit_tpu_torch.curves import secp256k1
 from zk_toolkit_tpu_torch.ops import curve_ops as C
+from zk_toolkit_tpu_torch.ops import edwards_ops as E
 from zk_toolkit_tpu_torch.ops import limbs as L
+from zk_toolkit_tpu_torch.ops import sha_ops as S
 from zk_toolkit_tpu_torch.ops.field_ops import FqOps
+from zk_toolkit_tpu_torch.signatures.ed25519 import Ed25519Sha512
 
 # -- secp256k1 ECDSA ---------------------------------------------------------
 
@@ -133,3 +143,125 @@ def ecdsa_verify_batch(r_plain: torch.Tensor, s_plain: torch.Tensor, pub_jac,
     p2 = C.scalar_mul(_P_OPS, pub_jac, u2, 256)
     x_mod_n, inf = _x_mod_n(C.point_add(_P_OPS, p1, p2))
     return ok & (~inf) & (x_mod_n == r_plain).all(-1)
+
+
+# -- Ed25519 -------------------------------------------------------------------
+
+_ED = ed25519_curve
+_ELL = _ED.L
+
+
+def _le_bytes_to_int(rows: np.ndarray) -> list[int]:
+    return [int.from_bytes(bytes(row.tobytes()), "little") for row in rows]
+
+
+@functools.lru_cache(maxsize=None)
+def _ed_base(device: str):
+    return E.pack_points([_ED.B()], device=device)
+
+
+def ed25519_verify_batch(sigs: np.ndarray, pub_keys: np.ndarray, msgs: np.ndarray,
+                         device="cuda") -> np.ndarray:
+    """Batched RFC 8032 verify: 8S B == 8R + 8k A (reference
+    ed25519_sha512.rs:160-186, the cofactor-8 form). sigs uint8 [B, 64],
+    pub_keys uint8 [B, 32], msgs uint8 [B, L] of equal length. The point
+    decodes, the k digest, the three scalar multiplications and the affine
+    comparison run on `device`; the host packs bytes and checks s < l.
+    Returns bool [B] (numpy)."""
+    dev = resolve_device(device)
+    b = sigs.shape[0]
+    dev_r, r_ok = E.decode_points(sigs[:, :32], dev)
+    dev_a, a_ok = E.decode_points(pub_keys, dev)
+    decode_ok = (r_ok & a_ok).cpu().numpy()
+
+    # k = SHA512(R || A || msg) mod l, batched on the device
+    k_digest = S.sha512_batch(np.concatenate([sigs[:, :32], pub_keys, msgs], axis=1), dev)
+    ks = [v % _ELL for v in _le_bytes_to_int(k_digest)]
+    ss = _le_bytes_to_int(sigs[:, 32:])
+    s_in_range = np.asarray([v < _ELL for v in ss])
+
+    # 8 s is not reduced: it reaches 2^259, 17 limbs of 260 bits
+    s8 = C.pack_scalars([v * 8 for v in ss], 260, dev)
+    k8 = C.pack_scalars([k * 8 % (_ELL * 8) for k in ks], 260, dev)
+    eight = C.pack_scalars([8] * b, 260, dev)
+    lhs = E.scalar_mul(_tile(_ed_base(str(dev)), b), s8, 260)
+    r8 = E.scalar_mul(dev_r, eight, 260)
+    ka8 = E.scalar_mul(dev_a, k8, 260)
+    lx, ly = E.to_affine(lhs)
+    rx, ry = E.to_affine(E.point_add(r8, ka8))
+    eq = ((lx == rx).all(-1) & (ly == ry).all(-1)).cpu().numpy()
+    return decode_ok & eq & s_in_range
+
+
+def _expand_keys(prv_keys: np.ndarray, device):
+    """The secret scalars s (pruned low halves of SHA-512(key)) and the
+    prefixes (high halves) of uint8 [B, 32] private keys, hashed on
+    `device` (reference ed25519_sha512.rs:100-125)."""
+    h = S.sha512_batch(prv_keys, device)
+    s_scalars = []
+    for row in h:
+        lower = bytearray(row[:32].tobytes())
+        Ed25519Sha512._prune(lower)
+        s_scalars.append(int.from_bytes(bytes(lower), "little"))
+    return s_scalars, h[:, 32:]
+
+
+def _base_mul_encoded(scalars: list[int], device) -> np.ndarray:
+    """Encodings uint8 [B, 32] of scalars[i] * B, with one 256-bit
+    scalar_mul over the batch on `device`."""
+    b = len(scalars)
+    pts = E.scalar_mul(_tile(_ed_base(str(device)), b), C.pack_scalars(scalars, 256, device), 256)
+    return _encode_points_batch(pts)
+
+
+def ed25519_sign_batch(prv_keys: np.ndarray, msgs: np.ndarray, device="cuda") -> np.ndarray:
+    """Batched RFC 8032 signing (reference ed25519_sha512.rs:127-158): the
+    key expansion and the r and k digests on `device` (SHA-512 batches), the
+    two scalar multiplications A = s B and R = r B there too, the pruning and
+    S = r + k s mod l per row on the host. prv_keys uint8 [B, 32], msgs
+    uint8 [B, L]. Returns uint8 [B, 64] signatures (numpy)."""
+    dev = resolve_device(device)
+    s_scalars, prefixes = _expand_keys(prv_keys, dev)
+    a_enc = _base_mul_encoded(s_scalars, dev)
+    rs = [v % _ELL for v in _le_bytes_to_int(
+        S.sha512_batch(np.concatenate([prefixes, msgs], axis=1), dev))]
+    r_enc = _base_mul_encoded(rs, dev)
+    ks = [v % _ELL for v in _le_bytes_to_int(
+        S.sha512_batch(np.concatenate([r_enc, a_enc, msgs], axis=1), dev))]
+    out = np.zeros((prv_keys.shape[0], 64), dtype=np.uint8)
+    out[:, :32] = r_enc
+    out[:, 32:] = np.frombuffer(b"".join(((r + k * s) % _ELL).to_bytes(32, "little")
+                                         for r, k, s in zip(rs, ks, s_scalars)),
+                                dtype=np.uint8).reshape(-1, 32)
+    return out
+
+
+def _encode_points_batch(p_ext) -> np.ndarray:
+    """Batched point encoding on the points' device (edwards_ops
+    encode_points); the JAX package's alias, kept for its callers."""
+    return E.encode_points(p_ext)
+
+
+# -- BLS -------------------------------------------------------------------------
+
+def bls_verify_batch(msgs: list[bytes], sigs: list, pks: list, hash_fn=None,
+                     device="cuda") -> np.ndarray:
+    """Batched BLS verification e(g1, sig) == e(pk, H(m)) (reference
+    bls12_381/signature.rs:29-44) as one pairing-product batch
+    e(-g1, sig) * e(pk, H(m)) == 1 over B rows of 2 pairs, with one final
+    exponentiation per row. H is `hash_fn` on the host, by default the
+    reference placeholder g2.hash_to_g2point. Returns bool [B] (numpy)."""
+    from zk_toolkit_tpu_torch.curves.bls12_381 import g1, g2
+    from zk_toolkit_tpu_torch.ops import pairing_ops as PO
+
+    hash_fn = hash_fn or g2.hash_to_g2point
+    dev = resolve_device(device)
+    po = PO.bls_pairing_ops()
+    spec = po.f.spec
+    b = len(msgs)
+    neg_g1 = -g1.g()
+    p_rows = [pt for pk in pks for pt in (neg_g1, pk)]
+    q_rows = [pt for sig, m in zip(sigs, msgs) for pt in (sig, hash_fn(m))]
+    p_b = tuple(a.view((b, 2) + a.shape[1:]) for a in PO.pack_g1_affine(p_rows, spec, dev))
+    q_b = tuple(a.view((b, 2) + a.shape[1:]) for a in PO.pack_g2_affine(q_rows, spec, dev))
+    return PO.pairing_product_is_one(po, p_b, q_b).cpu().numpy()

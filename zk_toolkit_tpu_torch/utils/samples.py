@@ -26,12 +26,14 @@ def random_field(rng, n: int, spec, dev) -> torch.Tensor:
     return torch.from_numpy(arr.astype(np.int32)).to(dev)
 
 
-def corner_pairs(rng, n: int, spec, dev):
+def corner_pairs(rng, n: int, spec, dev, above_p=()):
     """First n rows of: every pair of corner residues (field boundaries,
-    saturated limbs), then random rows."""
+    saturated limbs), then random rows. `above_p`: unreduced corner values
+    in [p, 2^(16K)), put first (the Ed25519 decode gives B1 such values, read
+    from the bytes of an encoding)."""
     p, k = spec.p, spec.K
     sat = int("ffff" * k, 16)
-    corners = [0, 1, 2, p - 1, p - 2, (p - 1) // 2, (p + 1) // 2,
+    corners = [*above_p, 0, 1, 2, p - 1, p - 2, (p - 1) // 2, (p + 1) // 2,
                sat % p, (sat >> 16) % p, (1 << (16 * (k - 1))) % p]
     a = ints_to_array([x for x in corners for _ in corners], k).astype(np.int32)
     b = ints_to_array([y for _ in corners for y in corners], k).astype(np.int32)
