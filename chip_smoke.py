@@ -28,7 +28,16 @@ five bad rows of bench.ED25519_BAD_ROWS rejected; bench_bls at 64
 signatures, every row verifying and the four bad rows of bench.BLS_BAD_ROWS
 rejected; B1 launched, and B2 and B3 not, inside the Ed25519 sign, the
 Ed25519 verify and the BLS verify, each counted on its bench's untimed
-first call), and prints:
+first call), and the remaining single-device engines (phase `engines`: the
+native host engine built, with the 2^16 Lagrange values of the Groth16
+domain equal on the engine and in Python; mont_pow_dynamic over 4096 Fr
+and 1024 Fq rows, rows in [p, 2^(16K)) among them, equal to its plain
+version and sampled rows to pow; the G1 and G2 fixed-base tables built
+and saved by build_table_cached, then loaded by it, equal limb for limb;
+profiling.trace writing a torch.profiler trace of one 2^20-point MSM).
+The script runs on a fresh $ZKT_TABLE_CACHE_DIR, removed at its end (the
+benches' timed CRS setups take an empty one of their own,
+bench.cold_tables), and stops itself at SCRIPT_DEADLINE_S. It prints:
 
   phase lines, each with its seconds;
   the prove's seconds, stage split, launches by kernel and batch, peak
@@ -62,7 +71,9 @@ first call), and prints:
     signature tier's, B1 at K = 16 mod q25519 = 2^255 - 19: the product at
     the Edwards stack of 4 x 4096 rows and on a stride-0 constant at 4096,
     the chain at 4096 rows for the inverse and the decode's square root;
-    each timing entry carries its launches on each path;
+    and phase engines': B1 at mont_pow_dynamic's stacked [2, B, K] batches
+    (Fr 2 x 4096, Fq 2 x 1024); each timing entry carries its launches on
+    each path (the paths of phase engines: mont_pow_dynamic, table_build);
   the card's name and power limit as nvidia-smi prints them;
   last, {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -77,13 +88,18 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import os
+import shutil
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 
-import numpy as np
-import torch
+_T0 = time.monotonic()  # the script's start, before torch is imported
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 3.35 TB/s; FP32 67 TFLOP/s
 # = 132 SMs x 128 lanes x 2 (FMA) x 1.98 GHz. A 32-bit integer multiply-add
@@ -149,19 +165,22 @@ ED25519_B = 4096
 EDWARDS_STACK = 4 * ED25519_B
 BLS_B = 64
 ED25519_SUB_PATHS = (f"ed25519_sign_{ED25519_B}", f"ed25519_verify_{ED25519_B}")
-# Each phase's limit is at least twice the longest time measured for it on
-# an H100: build 24, parity 79.4, slice 8.6, groth16 189.9, pairing 67.4
-# (counting on bench_pairing's first batch), pinocchio 217.7, secp256k1
-# 18.8 s. The sum, 1215 s, is above the script's 1200 s: on the slowest
-# host seen the script takes about 600 s, and no smaller depth shrinks these
-# phases (they are host-bound on per-call counts that do not depend on n).
-# Each phase's limit is at least twice the longest time measured for it on
-# an H100 80GB HBM3 at 700 W since its content last changed (PERF.md):
-# build 24, parity 84.0, slice 8.6, groth16 189.9, pairing 36.1 (one timed
-# batch), pinocchio 153.9 (the bench's one prove, counted), secp256k1 18.8
-# and signatures 59.0 s; the limits sum to 1193 s, inside the script's 1200.
-PHASE_LIMIT_S = {"build": 48, "parity": 188, "slice": 18, "groth16": 380, "pairing": 80,
-                 "pinocchio": 311, "secp256k1": 38, "signatures": 130}
+# The engines phase (the slice of the native engine, mont_pow_dynamic, the
+# table cache and the profiler): mont_pow_dynamic over 4096 Fr rows with
+# 255-bit exponents and 1024 Fq rows with 381-bit exponents (rows in
+# [p, 2^(16K)) and the exponents 0, 1, p - 1, p - 2 among them).
+POW_FR_ROWS, POW_FQ_ROWS = 4096, 1024
+# The script stops itself at SCRIPT_DEADLINE_S, counted from its start,
+# inside the 1200 s it is given. Each phase's limit is at least twice the
+# longest time measured for it on an H100 80GB HBM3 at 700 W (PERF.md):
+# build 24, parity 87.9, slice 8.6, groth16 189.9, pairing 41.7, pinocchio
+# 164.1, secp256k1 18.8, signatures 68.2 and engines 27.8 s. The limits sum
+# past the deadline; a phase's alarm is the smaller of its limit and the
+# time left before the deadline, and the error names the phase that
+# reached either. The phases took 490-615 s in all (PERF.md).
+SCRIPT_DEADLINE_S = 1150
+PHASE_LIMIT_S = {"build": 48, "parity": 188, "slice": 18, "groth16": 380, "pairing": 84,
+                 "pinocchio": 329, "secp256k1": 38, "signatures": 137, "engines": 120}
 
 
 class PhaseTimeout(Exception):
@@ -170,12 +189,21 @@ class PhaseTimeout(Exception):
 
 @contextlib.contextmanager
 def phase(name: str):
-    """Prints the phase's seconds; fails it after PHASE_LIMIT_S[name]."""
+    """Prints the phase's seconds; fails it after PHASE_LIMIT_S[name] or at
+    the script's deadline (SCRIPT_DEADLINE_S from its start), whichever
+    comes first."""
+    left = int(_T0 + SCRIPT_DEADLINE_S - time.monotonic())
+    limit = min(PHASE_LIMIT_S[name], left)
+    what = (f"its limit of {limit} s" if limit == PHASE_LIMIT_S[name] else
+            f"the script's deadline of {SCRIPT_DEADLINE_S} s ({limit} s left at its start)")
+    if limit <= 0:
+        raise PhaseTimeout(f"phase {name} reached {what} before it started")
+
     def _alarm(signum, frame):
-        raise PhaseTimeout(f"phase {name} exceeded {PHASE_LIMIT_S[name]} s")
+        raise PhaseTimeout(f"phase {name} reached {what}")
 
     old = signal.signal(signal.SIGALRM, _alarm)
-    signal.alarm(PHASE_LIMIT_S[name])
+    signal.alarm(limit)
     t0 = time.perf_counter()
     try:
         yield
@@ -724,6 +752,188 @@ def signature_paths(dev) -> dict:
     return out
 
 
+def engines_native(n_pad: int) -> dict:
+    """The native host engine: engine(r) is built (not None), and the n_pad
+    Lagrange values of groth16_setup's domain at bench's tau are the same
+    ints on the engine and in Python; each branch timed on the host
+    clock."""
+    from zk_toolkit_tpu_torch.bench import TRAPDOOR
+    from zk_toolkit_tpu_torch.curves.bls12_381 import params
+    from zk_toolkit_tpu_torch.native import engine, host
+    from zk_toolkit_tpu_torch.ops import ntt as NTT
+    from zk_toolkit_tpu_torch.protocols import groth16_device as GD
+
+    eng = engine(params.R)
+    out = {"library": os.path.basename(host.lib_path())}
+    if eng is None:
+        raise RuntimeError("native host engine not built: no g++ on the PATH")
+    w = NTT.fr_domain(n_pad, "cpu").w
+    res = {}
+    for native in (True, False):
+        t0 = time.perf_counter()
+        res[native] = GD.lagrange_at(n_pad, TRAPDOOR["tau"], w, native=native)
+        out["lagrange_native_s" if native else "lagrange_python_s"] = time.perf_counter() - t0
+    if res[True] != res[False]:
+        raise RuntimeError(f"native Lagrange values differ from Python's at n = {n_pad}")
+    out["n_pad"] = n_pad
+    return out
+
+
+def engines_trace(dev) -> dict:
+    """One 2^20-point G1 MSM (phase slice's inputs) under
+    profiling.trace("msm_2^20") with ZKT_PROFILE_DIR a temporary directory:
+    the trace file must be written; its kernel events are counted and the
+    card's busy share of the span is read from them."""
+    from zk_toolkit_tpu_torch.bench import msm_inputs
+    from zk_toolkit_tpu_torch.curves.bls12_381 import params
+    from zk_toolkit_tpu_torch.ops import limbs as L
+    from zk_toolkit_tpu_torch.ops import msm as M
+    from zk_toolkit_tpu_torch.ops.field_ops import FqOps
+    from zk_toolkit_tpu_torch.protocols.groth16_device import fixed_base_g1
+    from zk_toolkit_tpu_torch.utils import profiling
+
+    ops = FqOps(L.field_spec(params.Q))
+    _, _, base, scalars = msm_inputs(1 << 20, dev)
+    pts = fixed_base_g1(base)
+    M.msm_pippenger(ops, pts, scalars, 255)              # warm
+    torch.cuda.synchronize()
+    profiling.reset()
+    with tempfile.TemporaryDirectory() as d:
+        os.environ["ZKT_PROFILE_DIR"] = d
+        try:
+            with profiling.trace("msm_2^20"):
+                M.msm_pippenger(ops, pts, scalars, 255)
+                torch.cuda.synchronize()
+        finally:
+            del os.environ["ZKT_PROFILE_DIR"]
+        files = os.listdir(d)
+        if len(files) != 1:
+            raise RuntimeError(f"profiling.trace wrote {files}, expected one trace file")
+        with open(os.path.join(d, files[0])) as fh:
+            events = json.load(fh).get("traceEvents", [])
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    if not kern:
+        raise RuntimeError("the profiler trace of the MSM holds no kernel event")
+    span_s = profiling.report()["msm_2^20"]["total_s"]
+    kernel_us = sum(e.get("dur", 0) for e in kern)
+    # one stream, so the kernels do not overlap: the card's busy share of
+    # the span is their summed duration over the span's host-clock time
+    return {"file": files[0], "events": len(events), "kernel_events": len(kern),
+            "kernel_us": kernel_us, "span_s": span_s, "busy_share": kernel_us / 1e6 / span_s}
+
+
+def pow_inputs(dev) -> list:
+    """mont_pow_dynamic's inputs: (spec, bits, a, exponent limbs) for
+    POW_FR_ROWS Fr rows with 255-bit exponents and POW_FQ_ROWS Fq rows with
+    381-bit exponents; the first rows of a unreduced (p, p + 1, 2^(16K) - 1
+    and five more in [p, 2^(16K))), rows 8-11 raised to 0, 1, p - 1, p - 2."""
+    from zk_toolkit_tpu_torch.curves.bls12_381 import params
+    from zk_toolkit_tpu_torch.ops import limbs as L
+    from zk_toolkit_tpu_torch.utils import samples as S
+    from zk_toolkit_tpu_torch.utils.bigint import ints_to_array
+
+    rng = np.random.default_rng(2029)
+    out = []
+    for p, rows, nbits in ((params.R, POW_FR_ROWS, 255), (params.Q, POW_FQ_ROWS, 381)):
+        spec = L.field_spec(p)
+        k = spec.K
+        a = S.random_field(rng, rows, spec, dev)
+        above = [p, p + 1, (1 << (16 * k)) - 1] + [p + int(x) for x in rng.integers(2, 1 << 62, 5)]
+        a[:len(above)] = torch.from_numpy(ints_to_array(above, k).astype(np.int32)).to(dev)
+        e = rng.integers(0, 1 << 16, size=(rows, (nbits + 15) // 16), dtype=np.int64)
+        e[:, -1] &= (1 << (nbits - 16 * (e.shape[1] - 1))) - 1
+        e[8:12] = ints_to_array([0, 1, p - 1, p - 2], e.shape[1])
+        out.append((spec, nbits, a, torch.from_numpy(e.astype(np.int32)).to(dev)))
+    return out
+
+
+def pow_checks(dev, res: dict, inputs: list, results: list) -> dict:
+    """mont_pow_dynamic's results (the main path's run) against its plain
+    version on the same inputs (into res, as parity_and_timing) and, on 32
+    sampled rows (the unreduced and special ones among them), against
+    Python's pow; each call's time against the plain version's; B1 timed
+    at the stacked [2, B, K] batch of one bit."""
+    from zk_toolkit_tpu_torch.ops import limbs as L
+    from zk_toolkit_tpu_torch.utils import samples as S
+    from zk_toolkit_tpu_torch.utils.profiling import cuda_ms
+
+    rng = np.random.default_rng(2031)
+    out = {}
+    for (spec, nbits, a, e), got in zip(inputs, results):
+        k, p, rows = spec.K, spec.p, a.shape[0]
+        full = 1 << (16 * k)
+        before = res["mont_mul"]["mismatches"]
+        _record(res, "mont_mul", (got,), (L.mont_pow_dynamic_plain(a, e, spec, nbits),))
+        sample = list(range(16)) + [int(i) for i in rng.integers(16, rows, 16)]
+        xs = L.unpack(a[sample], spec, mont=False)
+        es = [int.from_bytes(r.astype("<u2").tobytes(), "little")
+              for r in e[sample].cpu().numpy()]
+        vals = L.unpack(got[sample], spec, mont=False)
+        r_inv = pow(full, -1, p)
+        bad = sum(v != pow(x * r_inv, x_e, p) * full % p for x, x_e, v in zip(xs, es, vals))
+        if bad:
+            raise RuntimeError(f"mont_pow_dynamic differs from pow on {bad} sampled rows")
+        out[f"K={k} {rows} x {nbits} bits"] = {
+            "mismatches": res["mont_mul"]["mismatches"] - before,
+            "sampled_rows_equal_pow": len(sample),
+            "ms": cuda_ms(lambda: L.mont_pow_dynamic(a, e, spec, nbits), 3, warm=1),
+            "plain_ms": cuda_ms(lambda: L.mont_pow_dynamic_plain(a, e, spec, nbits), 1, warm=0)}
+        x = S.random_field(rng, 2 * rows, spec, dev).view(2, rows, k)
+        y = S.random_field(rng, 2 * rows, spec, dev).view(2, rows, k)
+        _record(res, "mont_mul", (L._mont_mul_fused(x, y, spec),), (L.mont_mul_plain(x, y, spec),))
+        res["mont_mul"]["timings"].append(timed(
+            lambda: L._mont_mul_fused(x, y, spec), lambda: L.mont_mul_plain(x, y, spec), 200, 5,
+            2 * rows * 3 * 4 * k, 2 * rows * imad(k, 1, 0), batch=2 * rows, K=k,
+            entry="mont_mul", count_key=f"K={k} {2 * rows}", paths=("mont_pow_dynamic",),
+            what=f"product, mont_pow_dynamic's stacked [2, {rows}, {k}] of one bit"))
+    torch.cuda.synchronize()
+    return out
+
+
+def engines_tables(dev) -> dict:
+    """The fixed-base window tables of the Groth16 CRS (G1 and G2, 256 bits,
+    c = 8): built and saved by build_table_cached into an empty directory
+    of $ZKT_TABLE_CACHE_DIR (counted by kernel and batch), then loaded by
+    it from there (build_table refused while it loads); loaded equal to
+    built, limb for limb; build and load seconds."""
+    from zk_toolkit_tpu_torch.ops import fixed_base as FB
+    from zk_toolkit_tpu_torch.protocols import groth16_device as GD
+
+    d = str(dev)
+    groups = {"bls12_381_g1": (GD._fq_ops(), GD._g1_base(d)),
+              "bls12_381_g2": (GD._e2(), GD._g2_base(d))}
+    out, built = {}, {}
+    shared = os.environ["ZKT_TABLE_CACHE_DIR"]
+    cache = os.environ["ZKT_TABLE_CACHE_DIR"] = tempfile.mkdtemp(dir=shared, prefix="engines_")
+    make = FB.build_table
+    try:
+        def build():
+            for key, (ops, base) in groups.items():
+                t0 = time.perf_counter()
+                built[key] = FB.build_table_cached(ops, base, GD.FR_BITS, GD.FB_WINDOW, key=key)
+                torch.cuda.synchronize()
+                out[f"{key}_build_s"] = time.perf_counter() - t0
+
+        out["per_build"] = count_launches(build)
+
+        def refuse(*args):
+            raise RuntimeError("build_table_cached rebuilt a table it had saved")
+
+        FB.build_table = refuse
+        for key, (ops, base) in groups.items():
+            t0 = time.perf_counter()
+            loaded = FB.build_table_cached(ops, base, GD.FR_BITS, GD.FB_WINDOW, key=key)
+            torch.cuda.synchronize()
+            out[f"{key}_load_s"] = time.perf_counter() - t0
+            if not all(torch.equal(a, b) for a, b in zip(loaded, built[key])):
+                raise RuntimeError(f"the loaded {key} table differs from the built one")
+    finally:
+        FB.build_table = make
+        os.environ["ZKT_TABLE_CACHE_DIR"] = shared
+    out["cache_files"] = sorted(os.listdir(cache))
+    return out
+
+
 def count_launches(fn) -> dict:
     """Kernel launches of fn(), by launcher entry and batch size, counted at
     the launcher; every key carries K (16 for Fr and secp256k1, 24 for Fq)."""
@@ -877,6 +1087,7 @@ def groth16_run(dev) -> dict:
     counts = {}
     out = bench_groth16(device=dev, setup=setup, observe=observing(counts))
     out["crs_peak_bytes"] = crs_peak
+    out["n_pad"] = setup["mat"].n_pad
     out["launches_per_prove"] = counts["prove"]["launches"]
     out["field_ops_per_prove"] = counts["prove"]["field_ops"]
     out["verify_count"] = counts["verify"]
@@ -924,8 +1135,8 @@ def pinocchio_run(dev) -> dict:
     from zk_toolkit_tpu_torch.bench import bench_pinocchio, pinocchio_setup
     from zk_toolkit_tpu_torch.protocols import groth16_device as GD
 
-    # crs_s as a fresh process pays it: the fixed-base tables the Groth16
-    # CRS built are dropped first.
+    # the tables the Groth16 CRS built are dropped before the peak is reset
+    # (pinocchio_setup builds its own under bench.cold_tables)
     GD._g1_table.cache_clear()
     GD._g2_table.cache_clear()
     torch.cuda.empty_cache()
@@ -993,6 +1204,16 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script measures the port on a GPU",
               file=sys.stderr)
         return 2
+    # A fresh table cache: no run reads a table an earlier one left.
+    cache_dir = tempfile.mkdtemp(prefix="zkt_tables_")
+    os.environ["ZKT_TABLE_CACHE_DIR"] = cache_dir
+    try:
+        return run_phases()
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+
+
+def run_phases() -> int:
     from zk_toolkit_tpu_torch import _build
     from zk_toolkit_tpu_torch.bench import bench_msm
 
@@ -1175,11 +1396,47 @@ def main() -> int:
         bad = {k: v["mismatches"] for k, v in stats.items() if v["mismatches"] or v["max_abs_err"]}
         if bad:
             raise RuntimeError(f"kernels disagree with their plain versions at q25519: {bad}")
+    with phase("engines"):
+        en = engines_native(g16["n_pad"])
+        print(f"native engine {en['library']}: the {en['n_pad']} Lagrange values of the Groth16 "
+              f"domain at tau equal on the engine ({en['lagrange_native_s']:.3f} s) and in Python "
+              f"({en['lagrange_python_s']:.3f} s)", flush=True)
+        print("profiling.trace('msm_2^20') under ZKT_PROFILE_DIR: "
+              + json.dumps(engines_trace(dev)), flush=True)
+        from zk_toolkit_tpu_torch.ops import limbs as L
+
+        pow_in = pow_inputs(dev)
+
+        def mont_pow_dynamic_path(d):
+            results = []
+            counts = count_launches(lambda: results.extend(
+                L.mont_pow_dynamic(a, e, spec, nbits) for spec, nbits, a, e in pow_in))
+            return results, counts
+
+        pw = path_run(mont_pow_dynamic_path, dev, ("mont_mul",))
+        pow_results, pow_counts = pw["out"]
+        want_b1 = sum(1 + nbits for _, nbits, _, _ in pow_in)
+        if pw["launches"]["mont_mul"] != want_b1:
+            raise RuntimeError(f"mont_pow_dynamic made {pw['launches']['mont_mul']} B1 launches, "
+                               f"expected {want_b1} (1 + one stacked launch per bit)")
+        pow_chk = pow_checks(dev, stats, pow_in, pow_results)
+        print(f"mont_pow_dynamic: {want_b1} B1 launches by batch " + json.dumps(pow_counts)
+              + " | == plain version and sampled rows == pow: " + json.dumps(pow_chk), flush=True)
+        tb = path_run(engines_tables, dev, tuple(counters()))
+        to = tb["out"]
+        print("fixed-base tables G1/G2 (256 bits, c = 8): built and saved, then loaded == "
+              "built, limb for limb | seconds " + json.dumps(
+                  {k: round(v, 3) for k, v in to.items() if k.endswith("_s")})
+              + " | build launches by batch " + json.dumps(to["per_build"]), flush=True)
+        bad = {k: v["mismatches"] for k, v in stats.items() if v["mismatches"] or v["max_abs_err"]}
+        if bad:
+            raise RuntimeError(f"kernels disagree with their plain versions in phase engines: {bad}")
     by_path = {"msm_2^20": launches, "groth16_2^16": g16_launches,
                f"pairing_{PAIRING_B}": pr["launches"],
                f"pinocchio_2^{PINOCCHIO_LOG2_N}": pn["launches"],
                **{path: v["launches"] for path, v in sp.items()},
-               **{path: v["launches"] for path, v in sg.items()}}
+               **{path: v["launches"] for path, v in sg.items()},
+               "mont_pow_dynamic": pw["launches"], "table_build": tb["launches"]}
     # launches at each timed shape, by path, from the instrumented runs
     shape_counts = {"groth16_prove": g16["launches_per_prove"],
                     "groth16_verify": g16["verify_count"]["launches"],
@@ -1189,7 +1446,8 @@ def main() -> int:
                     f"ipa_2^{IPA_LOG2_N}": sc["ipa"]["launches"],
                     f"range_{RANGE_BITS}": sc["range"]["launches"],
                     f"ecdsa_verify_{ECDSA_B}": sc["verify"]["launches"],
-                    **{path: c["launches"] for path, c in sgc.items()}}
+                    **{path: c["launches"] for path, c in sgc.items()},
+                    "mont_pow_dynamic": pow_counts, "table_build": to["per_build"]}
     kernels = []
     for name, source, replaces, _ in KERNELS:
         s = stats[name]

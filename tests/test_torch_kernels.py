@@ -10,8 +10,9 @@ plain MSM and the host oracle; then the pairing path: Fq12 products,
 inverses and Frobenius maps at the verify's and bench_pairing's stacks,
 pairing_e against the host optimal-ate, and the Groth16 verify; then the
 secp256k1 tier at K = 16: msm_pippenger_many and the ECDSA batch functions
-on the card against the same calls on CPU tensors. This file
-imports no JAX, so it runs on a machine that has none:
+on the card against the same calls on CPU tensors; then mont_pow_dynamic
+against its plain version. This file imports no JAX, so it runs on a
+machine that has none:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
@@ -491,3 +492,32 @@ def test_bls_verify_on_card_matches_cpu_plain(card):
     want = [False] * 4 + [True]
     assert SIG.bls_verify_batch(*bad, device=card).tolist() == want
     assert SIG.bls_verify_batch(*bad, device="cpu").tolist() == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p, rows, nbits", [(params.R, 257, 255), (params.Q, 130, 381)],
+                         ids=["fr", "fq"])
+def test_mont_pow_dynamic_on_card_matches_plain(card, p, rows, nbits):
+    """mont_pow_dynamic (one B1 launch for the reduction, then one stacked
+    [2, B, K] launch per exponent bit) against its plain version on the
+    card, rows in [p, 2^(16K)) and exponents 0, 1, p - 1, p - 2 included,
+    and sampled rows against Python's pow."""
+    from zk_toolkit_tpu_torch.utils.bigint import ints_to_array
+
+    spec = L.field_spec(p)
+    rng = np.random.default_rng(rows)
+    full = 1 << (16 * spec.K)
+    xs = [int.from_bytes(rng.bytes(2 * spec.K), "little") % p for _ in range(rows - 3)]
+    xs += [p, p + 1, full - 1]
+    es = [int.from_bytes(rng.bytes(48), "little") % (1 << nbits) for _ in range(rows - 4)]
+    es += [0, 1, p - 1, p - 2]
+    a = torch.from_numpy(ints_to_array(xs, spec.K).astype(np.int32)).to(card)
+    e = torch.from_numpy(ints_to_array(es, (nbits + 15) // 16).astype(np.int32)).to(card)
+    before = L._mont_mul_fused.launches
+    got = L.mont_pow_dynamic(a, e, spec, nbits)
+    assert L._mont_mul_fused.launches - before == 1 + nbits
+    _equal((got,), (L.mont_pow_dynamic_plain(a, e, spec, nbits),))
+    r_inv = pow(full, -1, p)
+    vals = L.unpack(got[-8:], spec, mont=False)
+    for x, k, v in zip(xs[-8:], es[-8:], vals):
+        assert v == pow(x * r_inv, k, p) * full % p

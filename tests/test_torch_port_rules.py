@@ -3,7 +3,10 @@
 - zk_toolkit_tpu_torch/ and chip_smoke.py import neither jax nor the JAX
   package zk_toolkit_tpu (only the tests import both);
 - convert.py moves the JAX package's arrays into the port's tensors and
-  back without changing a limb.
+  back without changing a limb;
+- the port's native host engine builds from the port's own source
+  (zk_toolkit_tpu_torch/native/zkt_host.cpp) into build/, and writes nothing
+  under the repository's native/, where the JAX package keeps its own.
 """
 
 from __future__ import annotations
@@ -57,7 +60,10 @@ def test_scan_sees_the_whole_port():
                    "protocols/bulletproofs.py", "protocols/bulletproofs_device.py",
                    "ops/signature_ops.py", "signatures/ecdsa.py", "ops/sha_ops.py",
                    "ops/edwards_ops.py", "curves/curve25519.py", "signatures/ed25519.py",
-                   "signatures/bls.py"):
+                   "signatures/bls.py", "fields/polynomial.py", "snark/qap.py",
+                   "snark/circuits.py", "protocols/groth16.py", "protocols/pinocchio.py",
+                   "config.py", "utils/profiling.py", "native/__init__.py", "native/host.py",
+                   "ops/fixed_base.py", "ops/limbs.py", "ops/curve_ops.py"):
         assert f"zk_toolkit_tpu_torch/{module}" in names
     assert _forbidden("jax.numpy") and _forbidden("zk_toolkit_tpu.ops.limbs")
     assert not _forbidden("zk_toolkit_tpu_torch.ops.limbs")
@@ -86,3 +92,29 @@ def test_convert_rejects_what_is_not_a_limb_array():
         convert.limbs_from_jax(np.zeros((2, 24), dtype=np.int64), "cpu")
     with pytest.raises(ValueError):
         convert.limbs_from_jax(np.full((2, 24), 1 << 16, dtype=np.uint32), "cpu")
+
+
+def test_native_engine_builds_from_its_own_source(tmp_path, monkeypatch):
+    import shutil
+
+    from zk_toolkit_tpu_torch.native import host as H
+
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ toolchain")
+    assert pathlib.Path(H.SRC) == ROOT / "zk_toolkit_tpu_torch" / "native" / "zkt_host.cpp"
+    assert pathlib.Path(H.lib_path()).parent == ROOT / "build" / "zk_toolkit_tpu_torch"
+    native = ROOT / "native"
+    before = {f.name: f.stat().st_mtime_ns for f in native.iterdir()}
+    monkeypatch.setattr(H, "BUILD_DIR", str(tmp_path))
+    H._load.cache_clear()
+    H.engine.cache_clear()
+    try:
+        eng = H.engine(0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001)
+        assert eng.to_ints(eng.inv(eng.from_ints([2]))) == [pow(2, -1, eng.p)]
+        built = sorted(f.name for f in tmp_path.iterdir())
+        assert built == [pathlib.Path(H.lib_path()).name]
+        assert built[0].startswith("libzkthost-") and built[0].endswith(".so")
+    finally:
+        H._load.cache_clear()
+        H.engine.cache_clear()
+    assert {f.name: f.stat().st_mtime_ns for f in native.iterdir()} == before

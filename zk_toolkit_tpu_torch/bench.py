@@ -6,6 +6,8 @@ metric, over n DISTINCT points k_i * G made by the fixed-base path and
 any timing: with P_i = k_i * G and known k_i the MSM must equal
 (sum s_i k_i mod r) * G, an exact check that costs one uint64 matmul and one
 host scalar multiplication. The benchmark refuses to report a wrong result.
+host_msm_rate: the single-threaded host-tier MSM rate (points/s) on 64
+points, the JAX package's bench.py stand-in baseline.
 
 bench_groth16: the Groth16 prove and verify on the synthetic 2^16-constraint
 R1CS of bench.py, on bench.py's trapdoor and randomness. A, B, C must equal
@@ -40,6 +42,7 @@ Ethereum slot's committees), refused unless every true row verifies and the
 four bad rows are rejected.
 
 Run on a card: python -m zk_toolkit_tpu_torch.bench [log2_n]   (the MSM)
+               python -m zk_toolkit_tpu_torch.bench host_msm
                python -m zk_toolkit_tpu_torch.bench groth16 [log2_n]
                python -m zk_toolkit_tpu_torch.bench pairing [b]
                python -m zk_toolkit_tpu_torch.bench field_muls [log2_b]
@@ -53,9 +56,12 @@ Run on a card: python -m zk_toolkit_tpu_torch.bench [log2_n]   (the MSM)
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import random
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -153,6 +159,23 @@ def bench_msm(n: int = 1 << 20, device="cuda", reps: int = 3, c: int | None = No
         "split_ms": split,
         **_peak(dev),
     }
+
+
+def host_msm_rate() -> float:
+    """Single-threaded host-tier MSM points/s (the host AffinePoint law,
+    the reference's semantics), measured on 64 points, as the JAX package's
+    bench.py:host_msm_rate."""
+    from zk_toolkit_tpu_torch.curves.bls12_381 import g1
+
+    random.seed(3)
+    n = 64
+    pts = [g1.g() * random.randrange(1, params.R) for _ in range(n)]
+    ks = [random.randrange(params.R) for _ in range(n)]
+    t0 = time.perf_counter()
+    acc = g1.infinity()
+    for p, k in zip(pts, ks):
+        acc = acc + p * k
+    return n / (time.perf_counter() - t0)
 
 
 # bench.py's trapdoor and randomness: a warm-up prove, then TIMED_PROVES
@@ -275,10 +298,34 @@ def check_proof(crs, prover, proof, r: int, s: int, trapdoor=TRAPDOOR) -> float:
     return time.perf_counter() - t0
 
 
+@contextlib.contextmanager
+def cold_tables():
+    """The CRS's fixed-base window tables as a first run in a fresh checkout
+    finds them: none in memory (groth16_device's table caches cleared) and
+    none on disk ($ZKT_TABLE_CACHE_DIR an empty directory for the block),
+    so a crs_s timed inside counts both table builds, whatever earlier
+    runs left."""
+    from zk_toolkit_tpu_torch.protocols import groth16_device as GD
+
+    GD._g1_table.cache_clear()
+    GD._g2_table.cache_clear()
+    old = os.environ.get("ZKT_TABLE_CACHE_DIR")
+    with tempfile.TemporaryDirectory(prefix="zkt_tables_") as d:
+        os.environ["ZKT_TABLE_CACHE_DIR"] = d
+        try:
+            yield
+        finally:
+            if old is None:
+                del os.environ["ZKT_TABLE_CACHE_DIR"]
+            else:
+                os.environ["ZKT_TABLE_CACHE_DIR"] = old
+
+
 def groth16_setup(log2_n: int = 16, device="cuda") -> dict:
     """What a prove needs, on synthetic_r1cs(SUBGROUP, 2^log2_n, seed=2):
     the matrices, the CRS from bench.py's trapdoor (crs_s, host clock after
-    a synchronise) and the prover, with the seconds each took."""
+    a synchronise, under cold_tables) and the prover, with the seconds each
+    took."""
     from zk_toolkit_tpu_torch.protocols import groth16_device as GD
     from zk_toolkit_tpu_torch.snark.synthetic import synthetic_r1cs
 
@@ -287,7 +334,8 @@ def groth16_setup(log2_n: int = 16, device="cuda") -> dict:
     tmpl, wit = synthetic_r1cs(params.SUBGROUP, 1 << log2_n, seed=2)
     mat = GD.CircuitMatrices.from_tmpl(tmpl, dev)
     setup_s = time.perf_counter() - t0
-    crs, crs_s = _timed(dev, lambda: GD.DeviceCRS.from_trapdoor(mat, device=dev, **TRAPDOOR))
+    with cold_tables():
+        crs, crs_s = _timed(dev, lambda: GD.DeviceCRS.from_trapdoor(mat, device=dev, **TRAPDOOR))
     t0 = time.perf_counter()
     prover = GD.DeviceGroth16Prover(mat, wit, dev)
     return {"mat": mat, "crs": crs, "prover": prover, "setup_s": setup_s, "crs_s": crs_s,
@@ -510,7 +558,7 @@ def check_pinocchio_proof(prover, proof, deltas=PINOCCHIO_DELTAS,
 
 def pinocchio_setup(log2_n: int = 16, device="cuda") -> dict:
     """The Pinocchio CRS from PINOCCHIO_TRAPDOOR (crs_s, host clock after a
-    synchronise) and the prover, on synthetic_r1cs(SUBGROUP, 2^log2_n,
+    synchronise, under cold_tables) and the prover, on synthetic_r1cs(SUBGROUP, 2^log2_n,
     seed=2), the circuit of bench_groth16."""
     from zk_toolkit_tpu_torch.protocols import groth16_device as GD
     from zk_toolkit_tpu_torch.protocols import pinocchio_device as PD
@@ -519,8 +567,9 @@ def pinocchio_setup(log2_n: int = 16, device="cuda") -> dict:
     dev = resolve_device(device)
     tmpl, wit = synthetic_r1cs(params.SUBGROUP, 1 << log2_n, seed=2)
     mat = GD.CircuitMatrices.from_tmpl(tmpl, dev)
-    crs, crs_s = _timed(dev, lambda: PD.DevicePinocchioCRS.from_trapdoor(
-        mat, device=dev, **PINOCCHIO_TRAPDOOR))
+    with cold_tables():
+        crs, crs_s = _timed(dev, lambda: PD.DevicePinocchioCRS.from_trapdoor(
+            mat, device=dev, **PINOCCHIO_TRAPDOOR))
     return {"mat": mat, "crs": crs, "prover": PD.DevicePinocchioProver(mat, wit, dev),
             "crs_s": crs_s}
 
@@ -936,5 +985,7 @@ if __name__ == "__main__":
     if args and args[0] in benches:
         fn, default = benches[args[0]]
         print(json.dumps(fn(int(args[1]) if len(args) > 1 else default)))
+    elif args and args[0] == "host_msm":
+        print(json.dumps({"host_msm_points_per_s": host_msm_rate()}))
     else:
         print(json.dumps(bench_msm(1 << (int(args[0]) if args else 20))))

@@ -1,7 +1,8 @@
 """BLS12-381 parameters: base field modulus Q, subgroup order R, the field
 objects of the host tier, the BLS parameter x, and the G1 and G2
 generators as plain ints (E: y^2 = x^3 + 4 over Fq, E': y^2 = x^3 +
-4(1 + u) over Fq2). The same values as
+4(1 + u) over Fq2), and the accessors base_prime_field, subgroup and
+embedding_degree. The same values as
 zk_toolkit_tpu/curves/bls12_381/{params,g1,g2}.py."""
 
 from zk_toolkit_tpu_torch.fields.prime_field import PrimeField
@@ -47,3 +48,15 @@ G2_Y0 = int(
     "0ce5d527727d6e118cc9cdc6da2e351aadfd9baa8cbdd3a76d429a695160d12c923ac9cc3baca289e193548608b82801", 16)
 G2_Y1 = int(
     "0606c4a02ea734cc32acd2b02bc28b99cb3e287e85a763af267492ab572e99ab3f370d275cec1da1aaa9075ff05f79be", 16)
+
+
+def base_prime_field() -> PrimeField:
+    return BASE_PRIME_FIELD
+
+
+def subgroup() -> PrimeField:
+    return SUBGROUP
+
+
+def embedding_degree() -> int:
+    return EMBEDDING_DEGREE

@@ -161,3 +161,10 @@ class SparseMatrix:
         for y in sorted(self.rows):
             lines.append(f"  row {y}: {self.rows[y]!r}")
         return "\n".join(lines)
+
+    def to_polynomials(self) -> list:
+        """Each row interpreted as little-endian polynomial coefficients
+        (sparse_matrix.rs:242-253)."""
+        from zk_toolkit_tpu_torch.fields.polynomial import Polynomial
+
+        return [Polynomial(self.f, self.get_row(y).to_dense()) for y in range(self.height)]

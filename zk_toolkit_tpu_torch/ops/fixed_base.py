@@ -1,5 +1,5 @@
 """Windowed fixed-base scalar multiplication (the port of
-zk_toolkit_tpu/ops/fixed_base.py, without its on-disk table cache).
+zk_toolkit_tpu/ops/fixed_base.py, its on-disk table cache included).
 
 Precompute T[w][d] = d * 2^(c*w) * G once; every scalar multiplication is
 then W = ceil(nbits/c) table gathers plus a log2(W)-deep tree of batched
@@ -10,10 +10,19 @@ are chunked to fit the device's free memory.
 Generic over the field-ops namespace: FqOps gives G1 tables, Fq2Ops G2
 ones. A coordinate keeps its struct axes ([..., K] or [..., 2, K]) through
 the table and the gathers, and is budgeted at prod(shape[1:]) words.
+
+build_table_cached keeps each table in $ZKT_TABLE_CACHE_DIR (default
+<repo>/.zkt_tables) as the JAX package's .npz: t0..t2 (x, y as uint32
+limbs, inf as bool) and the derivation keys meta_*, so either package loads
+the other's file.
 """
 
 from __future__ import annotations
 
+import os
+import zipfile
+
+import numpy as np
 import torch
 
 from zk_toolkit_tpu_torch.ops import curve_ops as C
@@ -63,6 +72,76 @@ def build_table(ops, base_jac, nbits: int, c: int):
     return C.to_affine(ops, flat)
 
 
+def _table_cache_dir() -> str:
+    d = os.environ.get("ZKT_TABLE_CACHE_DIR")
+    if not d:
+        root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+        d = os.path.join(root, ".zkt_tables")
+    return d
+
+
+def _host_u32(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy().astype(np.uint32)
+
+
+def _load_table(path: str, meta: dict, dev):
+    """The (x, y, inf) table in `path` on `dev` if the file loads and every
+    meta field equals `meta`'s; None for a missing, corrupt, stale or
+    foreign file."""
+    if not os.path.exists(path):
+        return None
+    try:
+        with np.load(path) as data:
+            if not all(k in data and data[k].shape == v.shape and (data[k] == v).all()
+                       for k, v in meta.items()):
+                return None
+            return (torch.from_numpy(data["t0"].astype(np.int32)).to(dev),
+                    torch.from_numpy(data["t1"].astype(np.int32)).to(dev),
+                    torch.from_numpy(data["t2"].astype(bool)).to(dev))
+    except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
+        return None
+
+
+def build_table_cached(ops, base_jac, nbits: int, c: int, key: str):
+    """build_table with .npz persistence: the table is deterministic in
+    (base point, field, nbits, c), so it is built once per cache directory
+    and loaded onto the device of `base_jac` after that.
+
+    The file is named by (key, nbits, c) alone, so it stores the table's
+    derivation (the modulus as 12 32-bit words, [K, nbits, c], the base
+    point's Jacobian limbs) and the loader trusts it only if every one of
+    those equals this call's and its entry w = 0, d = 1 equals the affine
+    base point. A file that fails either, or that does not load, is rebuilt
+    and replaced; the write goes to a temporary file renamed into place, so
+    a reader never sees half of one."""
+    spec = ops.spec
+    meta = {
+        "meta_p": np.asarray([spec.p >> (32 * i) & 0xFFFFFFFF for i in range(12)],
+                             dtype=np.uint64),
+        "meta_dims": np.asarray([spec.K, nbits, c], dtype=np.int64),
+        "meta_bx": _host_u32(base_jac[0]),
+        "meta_by": _host_u32(base_jac[1]),
+        "meta_bz": _host_u32(base_jac[2]),
+    }
+    path = os.path.join(_table_cache_dir(), f"{key}_n{nbits}_c{c}.npz")
+    table = _load_table(path, meta, base_jac[0].device)
+    if table is not None:
+        # structural self-check: entry w = 0, d = 1 is 1 * 2^0 * G = G
+        g_aff = C.to_affine(ops, base_jac)
+        if torch.equal(table[0][1], g_aff[0][0]) and torch.equal(table[1][1], g_aff[1][0]):
+            return table
+    table = build_table(ops, base_jac, nbits, c)
+    try:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = path + f".tmp{os.getpid()}.npz"
+        np.savez_compressed(tmp, t0=_host_u32(table[0]), t1=_host_u32(table[1]),
+                            t2=table[2].cpu().numpy().astype(bool), **meta)
+        os.replace(tmp, path)
+    except OSError:
+        pass  # read-only filesystem: the table stays in memory
+    return table
+
+
 def _lift(ops, aff):
     """Affine (x, y, inf) -> Jacobian with z in {0, 1}."""
     ax, ay, inf = aff
@@ -109,8 +188,6 @@ def _free_bytes(device: torch.device) -> int:
     reports free for the CPU)."""
     if device.type == "cuda":
         return torch.cuda.mem_get_info(device)[0]
-    import os
-
     return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE") // 2
 
 

@@ -377,6 +377,40 @@ def mont_inv_plain(a: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
     return mont_pow_static_plain(a, spec.p_minus_2_bits, spec)
 
 
+def mont_pow_dynamic(a: torch.Tensor, exp_limbs: torch.Tensor, spec: FieldSpec,
+                     exp_bits_count: int, mul=None) -> torch.Tensor:
+    """a^e in Montgomery form for per-row exponents: exp_limbs int32
+    [..., E] plain 16-bit limbs, read LSB-first over exp_bits_count bits.
+    From acc = R mod p and base = a, each bit takes acc * base where the bit
+    is set and squares base, as the JAX package's scan does; the product and
+    the square of a bit are one [2, ..., K] stacked call of `mul` (one B1
+    launch on a card; mont_mul by default, the plain product on the CPU).
+
+    `a` is reduced first, as the product of R mod p (left) and a (right),
+    so every product's left operand is canonical (the 12-word B1 product is
+    exact only then) for rows in [p, 2^(16K)) too; the JAX package's result
+    is the same canonical value, its accumulator being canonical throughout.
+    1 + exp_bits_count calls of `mul`."""
+    if mul is None:
+        mul = functools.partial(mont_mul, spec=spec)
+    one = const_limbs(spec.r_mod_p, spec.K, _dev(a)).expand(a.shape)
+    base = mul(one, a)
+    acc = one
+    for i in range(exp_bits_count):
+        bit = (exp_limbs[..., i // LIMB_BITS] >> (i % LIMB_BITS)) & 1
+        prod = mul(torch.stack((acc, base)), torch.stack((base, base)))
+        acc = torch.where((bit == 1)[..., None], prod[0], acc)
+        base = prod[1]
+    return acc
+
+
+def mont_pow_dynamic_plain(a: torch.Tensor, exp_limbs: torch.Tensor, spec: FieldSpec,
+                           exp_bits_count: int) -> torch.Tensor:
+    """mont_pow_dynamic through plain products only (any device)."""
+    return mont_pow_dynamic(a, exp_limbs, spec, exp_bits_count,
+                            functools.partial(mont_mul_plain, spec=spec))
+
+
 # -- host conversion helpers ----------------------------------------------------
 
 def pack(xs, spec: FieldSpec, mont: bool = True, device="cuda") -> torch.Tensor:

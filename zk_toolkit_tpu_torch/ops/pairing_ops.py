@@ -209,7 +209,17 @@ def bls_pairing_ops(plain: bool = False) -> BlsPairingOps:
 def pairing_e(ops: BlsPairingOps, p_aff, q_aff):
     """Batched pairing e(P, Q)^3 (see optimal_ate.py's normalization): one
     Miller loop and one final exponentiation over the batch."""
-    return ops.final_exp(ops.miller_loop(p_aff, q_aff))
+    return ops.final_exp(miller_only(ops, p_aff, q_aff))
+
+
+def miller_only(ops: BlsPairingOps, p_aff, q_aff):
+    """The batched Miller loop alone (no final exponentiation)."""
+    return ops.miller_loop(p_aff, q_aff)
+
+
+def gt_mul(ops: BlsPairingOps, a, b):
+    """Product of two batched Fq12 (GT) values."""
+    return ops.e12.mul(a, b)
 
 
 def _fold_pair_axis(ops: BlsPairingOps, f):

@@ -15,8 +15,12 @@ generators.
 On a card every Fr and Fq product runs on kernel B1, every G1 add and
 doubling on B2/B3; G2 runs the formulas over Fq2Ops. Entry points take
 `device="cuda"` and raise without a card; pass device="cpu" to run the
-plain versions. Where the JAX package calls its native host engine, the
-port takes the pure-Python branch (the same ints).
+plain versions. The CRS's Lagrange values run on the port's copy of the
+JAX package's native host engine (native/), in Python without g++ (the
+same ints); its scalars are packed in Python, which an H100 host measured
+as fast as the native packing at 2^16 scalars (PERF.md). The fixed-base
+window tables persist on disk (fixed_base.build_table_cached, keys
+bls12_381_g1 / bls12_381_g2, the JAX package's file format).
 
 Trapdoor (tau, alpha, beta, gamma, delta) and randomness (r, s) are
 injectable for reproducible differential tests.
@@ -33,6 +37,7 @@ import torch
 
 from zk_toolkit_tpu_torch import resolve_device
 from zk_toolkit_tpu_torch.curves.bls12_381 import g1, g2, params
+from zk_toolkit_tpu_torch.native import engine
 from zk_toolkit_tpu_torch.ops import curve_ops as C
 from zk_toolkit_tpu_torch.ops import fixed_base as FB
 from zk_toolkit_tpu_torch.ops import limbs as L
@@ -158,7 +163,8 @@ def _g1_base(device: str):
 
 @functools.lru_cache(maxsize=None)
 def _g1_table(device: str):
-    return FB.build_table(_fq_ops(), _g1_base(device), FR_BITS, FB_WINDOW)
+    return FB.build_table_cached(_fq_ops(), _g1_base(device), FR_BITS, FB_WINDOW,
+                                 key="bls12_381_g1")
 
 
 def fixed_base_g1(scalars_plain: torch.Tensor):
@@ -177,7 +183,8 @@ def _g2_base(device: str):
 
 @functools.lru_cache(maxsize=None)
 def _g2_table(device: str):
-    return FB.build_table(_e2(), _g2_base(device), FR_BITS, FB_WINDOW)
+    return FB.build_table_cached(_e2(), _g2_base(device), FR_BITS, FB_WINDOW,
+                                 key="bls12_381_g2")
 
 
 def fixed_base_g2(scalars_plain: torch.Tensor):
@@ -191,18 +198,33 @@ def _pack_fr_plain(xs, device) -> torch.Tensor:
     return C.pack_scalars([int(x) % R for x in xs], FR_BITS, device)
 
 
-def qap_at(mat: CircuitMatrices, x: int, w_root: int):
-    """(u_i(x), v_i(x), w_i(x) per wire, t(x)): the QAP's wire polynomials
-    over the domain of n_pad roots of unity (w_root the primitive one),
-    evaluated at x through the Lagrange basis
-    L_j(x) = (x^n - 1) w^j / (n (x - w^j)); host bigints, O(n)."""
-    n_pad = mat.n_pad
+def lagrange_at(n_pad: int, x: int, w_root: int, native: bool = True):
+    """([L_j(x) for j < n_pad], t(x)) over the domain of n_pad roots of
+    unity (w_root the primitive one), L_j(x) = (x^n - 1) w^j / (n (x - w^j)),
+    t(x) = x^n - 1: on the native engine (one power table, one batched
+    inversion, two batched products, as the JAX package) or, without g++ or
+    with native=False, in Python bigints; the same ints."""
     t_x = (pow(x, n_pad, R) - 1) % R
     n_inv = pow(n_pad, -1, R)
+    eng = engine(R) if native else None
+    if eng is not None:
+        wj_t = eng.pow_table(w_root, n_pad)
+        x_arr = np.repeat(eng.from_ints([x]), n_pad, axis=0)
+        den_inv = eng.inv(eng.sub(x_arr, wj_t))
+        coef = eng.from_ints([t_x * n_inv % R])
+        return eng.to_ints(eng.mul(eng.mul_scalar(wj_t, coef), den_inv)), t_x
     lag, wj = [], 1
     for _ in range(n_pad):
         lag.append(t_x * wj % R * pow((x - wj) % R, -1, R) % R * n_inv % R)
         wj = wj * w_root % R
+    return lag, t_x
+
+
+def qap_at(mat: CircuitMatrices, x: int, w_root: int):
+    """(u_i(x), v_i(x), w_i(x) per wire, t(x)): the QAP's wire polynomials
+    over the domain of n_pad roots of unity, evaluated at x through the
+    Lagrange basis (lagrange_at); O(n) host work."""
+    lag, t_x = lagrange_at(mat.n_pad, x, w_root)
     u, v, w = ([0] * (mat.m + 1) for _ in range(3))
     for j, cons in enumerate(mat.tmpl.constraints):
         for acc, side in ((u, cons.a), (v, cons.b), (w, cons.c)):

@@ -9,8 +9,9 @@ power-of-two root-of-unity domain, trapdoor and prover randomness are
 injectable, every group sum is a Pippenger MSM (G1 on kernels B2/B3, G2 on
 the formulas over Fq2Ops, every product on B1). Entry points take
 `device="cuda"` and raise without a card; pass device="cpu" to run the plain
-versions. Where the JAX package calls its native host engine for the
-Lagrange values, the port takes the pure-Python branch (the same ints).
+versions. The Lagrange values of the CRS run on the port's native host
+engine where the JAX package runs its own (groth16_device.qap_at), in
+Python without g++.
 """
 
 from __future__ import annotations

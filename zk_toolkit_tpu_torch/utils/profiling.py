@@ -1,19 +1,31 @@
-"""Timing on the card: named time spans for the stages of a run, and the
-per-call timers of chip_smoke.py, kernel_ab.py and kernel_variants.py.
+"""Timing on the card: named time spans for the stages of a run, the
+per-call timers of chip_smoke.py, kernel_ab.py and kernel_variants.py, and
+the JAX package's tracing hooks (zk_toolkit_tpu/utils/profiling.py):
 
-On a CUDA device each span records a pair of CUDA events on the current
-stream, so a span measures device time between its start and end without
-synchronising inside the run; `totals()` synchronises once and sums the
-milliseconds per name. On the CPU spans use the host clock.
+- `Spans`: on a CUDA device each span records a pair of CUDA events on the
+  current stream, so a span measures device time between its start and end
+  without synchronising inside the run; `totals()` synchronises once and
+  sums the milliseconds per name. On the CPU spans use the host clock.
+- `timed(name)`: a host wall-clock span accumulating into a module-level
+  table (`report()` reads it, `reset()` clears it).
+- `trace(name)`: a torch.profiler trace of the span, written as a Chrome
+  trace into $ZKT_PROFILE_DIR when that is set (CUDA activity too when a
+  card is present), else a `timed` span.
 """
 
 from __future__ import annotations
 
 import contextlib
+import logging
+import os
 import time
 from collections import defaultdict
 
 import torch
+
+log = logging.getLogger("zk_toolkit_tpu_torch.profiling")
+
+_SPANS: dict[str, list[float]] = defaultdict(list)
 
 
 class Spans:
@@ -92,3 +104,51 @@ def device_ms(fn, reps: int):
     if host_ms >= ev[0].elapsed_time(ev[1]):
         raise RuntimeError(f"enqueue of {reps} calls ({host_ms:.1f} ms) outlasted the spin")
     return ev[1].elapsed_time(ev[2]) / reps, host_ms * 1e3 / reps
+
+
+@contextlib.contextmanager
+def timed(name: str):
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        dt = time.perf_counter() - t0
+        _SPANS[name].append(dt)
+        log.debug("span %s: %.4fs", name, dt)
+
+
+@contextlib.contextmanager
+def trace(name: str):
+    """A torch.profiler trace of the span when ZKT_PROFILE_DIR is set,
+    written to <dir>/<name>-<pid>-<n>.pt.trace.json (view it in Perfetto or
+    chrome://tracing), as well as a timed() span; else a timed() span only."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from zk_toolkit_tpu_torch.config import profile_dir
+
+    d = profile_dir()
+    if not d:
+        with timed(name):
+            yield
+        return
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(d, exist_ok=True)
+    with profile(activities=activities) as prof, timed(name):
+        yield
+    path = os.path.join(d, f"{name}-{os.getpid()}-{len(_SPANS[name])}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    log.debug("trace %s: %s", name, path)
+
+
+def report() -> dict:
+    """{span: {count, total_s, mean_s}} for all timed() spans so far."""
+    return {
+        k: {"count": len(v), "total_s": sum(v), "mean_s": sum(v) / len(v)}
+        for k, v in _SPANS.items()
+    }
+
+
+def reset() -> None:
+    _SPANS.clear()
