@@ -34,7 +34,16 @@ domain equal on the engine and in Python; mont_pow_dynamic over 4096 Fr
 and 1024 Fq rows, rows in [p, 2^(16K)) among them, equal to its plain
 version and sampled rows to pow; the G1 and G2 fixed-base tables built
 and saved by build_table_cached, then loaded by it, equal limb for limb;
-profiling.trace writing a torch.profiler trace of one 2^20-point MSM).
+profiling.trace writing a torch.profiler trace of one 2^20-point MSM),
+and the sharded layer (phase `parallel`: a world of one over NCCL made in
+this process by parallel.mesh.make_mesh; sharded_msm_explicit over phase
+slice's 2^20-point stream equal to msm_pippenger in affine and to the known
+dlog, sharded_h_from_evs at 2^16 rows equal to h_coset_then_coeffs limb
+for limb, sharded_ipa at 2^10 accepting and rejecting P + G as
+DeviceBulletproofs does, sharded_prove at 2^16 constraints on phase
+groth16's CRS equal limb for limb to that phase's warm-up proof and
+accepted by host_oracle_verify, which rejects a tampered statement; B1, B2
+and B3 each launched inside the sharded prove).
 The script runs on a fresh $ZKT_TABLE_CACHE_DIR, removed at its end (the
 benches' timed CRS setups take an empty one of their own,
 bench.cold_tables), and stops itself at SCRIPT_DEADLINE_S. It prints:
@@ -73,7 +82,11 @@ bench.cold_tables), and stops itself at SCRIPT_DEADLINE_S. It prints:
     the chain at 4096 rows for the inverse and the decode's square root;
     and phase engines': B1 at mont_pow_dynamic's stacked [2, B, K] batches
     (Fr 2 x 4096, Fq 2 x 1024); each timing entry carries its launches on
-    each path (the paths of phase engines: mont_pow_dynamic, table_build);
+    each path (the paths of phase engines: mont_pow_dynamic, table_build;
+    of phase parallel: parallel_msm_2^20, parallel_h_2^16,
+    parallel_ipa_2^10, parallel_prove_2^16);
+  for each sharded path of phase parallel: its seconds, peak memory,
+    process-group calls (mesh.counts) and launches by kernel and batch;
   the card's name and power limit as nvidia-smi prints them;
   last, {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -170,17 +183,21 @@ ED25519_SUB_PATHS = (f"ed25519_sign_{ED25519_B}", f"ed25519_verify_{ED25519_B}")
 # 255-bit exponents and 1024 Fq rows with 381-bit exponents (rows in
 # [p, 2^(16K)) and the exponents 0, 1, p - 1, p - 2 among them).
 POW_FR_ROWS, POW_FQ_ROWS = 4096, 1024
+# Phase parallel: the sharded layer on a world of one over NCCL; its
+# quotient chain at 2^16 rows (the Groth16 prove's domain).
+PARALLEL_NTT_LOG2_N = 16
 # The script stops itself at SCRIPT_DEADLINE_S, counted from its start,
 # inside the 1200 s it is given. Each phase's limit is at least twice the
 # longest time measured for it on an H100 80GB HBM3 at 700 W (PERF.md):
 # build 24, parity 87.9, slice 8.6, groth16 189.9, pairing 41.7, pinocchio
-# 164.1, secp256k1 18.8, signatures 68.2 and engines 27.8 s. The limits sum
-# past the deadline; a phase's alarm is the smaller of its limit and the
-# time left before the deadline, and the error names the phase that
-# reached either. The phases took 490-615 s in all (PERF.md).
+# 164.1, secp256k1 18.8, signatures 68.2, engines 27.8 and parallel 82.1 s.
+# The limits sum past the deadline; a phase's alarm is the smaller of its
+# limit and the time left before the deadline, and the error names the
+# phase that reached either. The phases took 490-744 s in all (PERF.md).
 SCRIPT_DEADLINE_S = 1150
 PHASE_LIMIT_S = {"build": 48, "parity": 188, "slice": 18, "groth16": 380, "pairing": 84,
-                 "pinocchio": 329, "secp256k1": 38, "signatures": 137, "engines": 120}
+                 "pinocchio": 329, "secp256k1": 38, "signatures": 137, "engines": 120,
+                 "parallel": 240}
 
 
 class PhaseTimeout(Exception):
@@ -1050,12 +1067,15 @@ def count_path(fn, results: list | None = None) -> dict:
     return out
 
 
-def observing(into: dict):
+def observing(into: dict, kept: dict | None = None):
     """An `observe` hook for bench's untimed first calls: runs the call under
-    count_path, keeps its counts in into[name], returns the call's result."""
+    count_path, keeps its counts in into[name] (and its result in
+    kept[name] when kept is given), returns the call's result."""
     def observe(name, f):
         results = []
         into[name] = count_path(f, results)
+        if kept is not None:
+            kept[name] = results[0]
         return results[0]
     return observe
 
@@ -1071,10 +1091,11 @@ def require_all_launched(per_batch: dict, what: str) -> None:
         raise RuntimeError(f"kernels not launched inside {what}: {idle}")
 
 
-def groth16_run(dev) -> dict:
+def groth16_run(dev) -> tuple[dict, dict]:
     """bench_groth16 at 2^16 constraints (its checks raise on a wrong proof
     or a wrong verdict), its untimed warm-up prove and first verify
-    instrumented (count_path)."""
+    instrumented (count_path). Returns its result and, for phase parallel,
+    the setup (matrices, CRS, prover) and the warm-up proof at WARM_RS."""
     from zk_toolkit_tpu_torch.bench import bench_groth16, groth16_setup
 
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1084,15 +1105,15 @@ def groth16_run(dev) -> dict:
           f"{setup['mat'].kmax} | R1CS + matrices {setup['setup_s']:.2f} s | CRS (table mode) "
           f"{setup['crs_s']:.3f} s, peak {crs_peak / 2**30:.2f} GiB | prover init "
           f"{setup['prover_init_s']:.2f} s", flush=True)
-    counts = {}
-    out = bench_groth16(device=dev, setup=setup, observe=observing(counts))
+    counts, kept = {}, {}
+    out = bench_groth16(device=dev, setup=setup, observe=observing(counts, kept))
     out["crs_peak_bytes"] = crs_peak
     out["n_pad"] = setup["mat"].n_pad
     out["launches_per_prove"] = counts["prove"]["launches"]
     out["field_ops_per_prove"] = counts["prove"]["field_ops"]
     out["verify_count"] = counts["verify"]
     out["add_sub_ms"] = add_sub_timings(dev)
-    return out
+    return out, {"setup": setup, "proof": kept["prove"]}
 
 
 def pairing_run(dev) -> dict:
@@ -1173,6 +1194,120 @@ def small_msm_check(dev):
         acc = HC.jac_add(F, acc, HC.jac_mul(F, HC.from_affine(F, a), s))
     if got != HC.jac_to_affine(F, acc):
         raise RuntimeError("64-point MSM on the card differs from the host oracle")
+
+
+def parallel_path(mesh, fn, results: list) -> dict:
+    """One run of a sharded path, fn(), its result appended to `results`:
+    every kernel's launch count and mesh.counts set to 0 just before; the
+    seconds (host clock, synchronised before and after), the card's peak
+    memory, the process-group calls (mesh.counts) and the launches per
+    kernel and by batch (count_launches)."""
+    for f in counters().values():
+        f.launches = 0
+    mesh.counts.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    t0 = time.perf_counter()
+    per_batch = count_launches(lambda: results.append(fn()))
+    return {"seconds": time.perf_counter() - t0,
+            "peak_bytes": torch.cuda.max_memory_allocated(mesh.device),
+            "collectives": dict(mesh.counts),
+            "launches": {k: f.launches for k, f in counters().items()},
+            "per_batch": per_batch}
+
+
+def parallel_run(dev, g16_kept: dict) -> dict:
+    """The sharded layer on a world of one over NCCL (make_mesh(1, "cuda"),
+    in this process), each path under parallel_path and held against the
+    single-device result on the same inputs: sharded_msm_explicit over phase
+    slice's 2^20-point stream (== msm_pippenger in affine, and the known
+    dlog); sharded_h_from_evs at 2^PARALLEL_NTT_LOG2_N rows (==
+    h_coset_then_coeffs limb for limb); sharded_ipa at 2^IPA_LOG2_N
+    (bench.ipa_setup's statement: accepts it, rejects P + G, as
+    DeviceBulletproofs does on the same challenges); sharded_prove at 2^16
+    constraints on phase groth16's matrices and CRS at WARM_RS (== that
+    phase's warm-up proof limb for limb, bench.check_proof: the trapdoor's
+    multiples, host_oracle_verify accepting it and rejecting a tampered
+    statement; B1, B2 and B3 each launched). Ends the process group."""
+    from zk_toolkit_tpu_torch.bench import WARM_RS, check_proof, ipa_setup, msm_inputs
+    from zk_toolkit_tpu_torch.curves.bls12_381 import params
+    from zk_toolkit_tpu_torch.ops import curve_ops as C
+    from zk_toolkit_tpu_torch.ops import limbs as L
+    from zk_toolkit_tpu_torch.ops import msm as M
+    from zk_toolkit_tpu_torch.ops import ntt as NTT
+    from zk_toolkit_tpu_torch.ops.field_ops import FqOps
+    from zk_toolkit_tpu_torch.parallel.mesh import make_mesh
+    from zk_toolkit_tpu_torch.parallel.sharded_groth16 import sharded_prove
+    from zk_toolkit_tpu_torch.parallel.sharded_ipa import sharded_ipa
+    from zk_toolkit_tpu_torch.parallel.sharded_msm import sharded_msm_explicit
+    from zk_toolkit_tpu_torch.parallel.sharded_ntt import sharded_h_from_evs
+    from zk_toolkit_tpu_torch.protocols import bulletproofs_device as BD
+    from zk_toolkit_tpu_torch.protocols.groth16_device import fixed_base_g1
+    from zk_toolkit_tpu_torch.utils import host_curve as HC
+    from zk_toolkit_tpu_torch.utils import samples as S
+
+    out = {}
+    with make_mesh(1, "cuda") as mesh:
+        out["mesh"] = {"rank": mesh.rank, "world": mesh.world, "backend": mesh.backend,
+                       "device": str(mesh.device)}
+        # the explicit MSM over phase slice's stream
+        spec = L.field_spec(params.Q)
+        ops = FqOps(spec)
+        base_np, sc_np, base, sc = msm_inputs(1 << 20, dev)
+        pts = fixed_base_g1(base)
+        got = []
+        out["msm_2^20"] = parallel_path(
+            mesh, lambda: sharded_msm_explicit(ops, pts, sc, 255, mesh), got)
+        single = M.msm_pippenger(ops, pts, sc, 255)
+        aff = [C.unpack_points(tuple(a[None] for a in p), spec)[0] for p in (got[0], single)]
+        if aff[0] != aff[1]:
+            raise RuntimeError("sharded_msm_explicit differs from msm_pippenger in affine")
+        if aff[0] != HC.g1_mul_affine(HC._limb_dot_mod_r(base_np, sc_np, 255)):
+            raise RuntimeError("sharded_msm_explicit differs from the known dlog")
+        del pts, single, got
+
+        # the quotient chain
+        n = 1 << PARALLEL_NTT_LOG2_N
+        rng = np.random.default_rng(2032)
+        fr = L.field_spec(params.R)
+        a, b, c = (S.random_field(rng, n, fr, dev) for _ in range(3))
+        got = []
+        out[f"h_2^{PARALLEL_NTT_LOG2_N}"] = parallel_path(
+            mesh, lambda: sharded_h_from_evs(a, b, c, mesh), got)
+        want = NTT.h_coset_then_coeffs(NTT.fr_domain(n, dev), a, b, c)
+        rows, err = diff_stats((got[0],), (want,))
+        if rows or err:
+            raise RuntimeError(f"sharded_h_from_evs differs from h_coset_then_coeffs: {rows} "
+                               f"rows, max limb error {err}")
+
+        # the IPA, its true statement and P + G
+        st = ipa_setup(IPA_LOG2_N, dev)
+        bad_P = C.point_add(BD._P_OPS, st["P"], st["G"])
+        args = lambda P: (st["n"], st["gg"], st["hh"], st["u"], P, st["a"], st["b"])
+        got = []
+        out[f"ipa_2^{IPA_LOG2_N}"] = parallel_path(
+            mesh, lambda: [sharded_ipa(mesh, *args(P), st["chal"]) for P in (st["P"], bad_P)],
+            got)
+        single = [BD.DeviceBulletproofs(list(st["chal"])).inner_product_argument(*args(P))
+                  for P in (st["P"], bad_P)]
+        if got[0] != [True, False] or single != got[0]:
+            raise RuntimeError(f"sharded_ipa verdicts {got[0]} (true statement, P + G), "
+                               f"DeviceBulletproofs {single}, expected [True, False]")
+
+        # the prove on phase groth16's setup, against its warm-up proof
+        setup = g16_kept["setup"]
+        mat, crs, prover = setup["mat"], setup["crs"], setup["prover"]
+        got = []
+        out["prove_2^16"] = parallel_path(
+            mesh, lambda: sharded_prove(mesh, mat, crs, prover.wires, *WARM_RS), got)
+        ref = g16_kept["proof"]
+        rows, err = diff_stats(got[0].a + got[0].b + got[0].c, ref.a + ref.b + ref.c)
+        if rows or err:
+            raise RuntimeError(f"sharded_prove differs from prove_with_rs at {WARM_RS}: {rows} "
+                               f"rows, max limb error {err}")
+        out["prove_2^16"]["oracle_s"] = check_proof(crs, prover, got[0], *WARM_RS)
+        require_all_launched(out["prove_2^16"]["per_batch"], "the sharded prove")
+    return out
 
 
 def counters():
@@ -1278,7 +1413,7 @@ def run_phases() -> int:
         for fn in counters().values():
             fn.launches = 0
         torch.cuda.synchronize()
-        g16 = groth16_run(dev)
+        g16, g16_kept = groth16_run(dev)
         torch.cuda.synchronize()
         g16_launches = {k: fn.launches for k, fn in counters().items()}
         per_prove = g16["launches_per_prove"]
@@ -1431,12 +1566,30 @@ def run_phases() -> int:
         bad = {k: v["mismatches"] for k, v in stats.items() if v["mismatches"] or v["max_abs_err"]}
         if bad:
             raise RuntimeError(f"kernels disagree with their plain versions in phase engines: {bad}")
+    with phase("parallel"):
+        par = parallel_run(dev, g16_kept)
+        del g16_kept
+        print(f"parallel: a world of one over {par['mesh']['backend']} on "
+              f"{par['mesh']['device']}: sharded_msm_explicit 2^20 == msm_pippenger and the "
+              f"known dlog; sharded_h_from_evs 2^{PARALLEL_NTT_LOG2_N} == h_coset_then_coeffs; "
+              f"sharded_ipa 2^{IPA_LOG2_N} accepts, rejects P + G, as DeviceBulletproofs; "
+              f"sharded_prove 2^16 == prove_with_rs at (5, 6), the trapdoor's, "
+              f"host_oracle_verify accepts and rejects a tampered statement "
+              f"({par['prove_2^16']['oracle_s']:.1f} s)", flush=True)
+        for path in ("msm_2^20", f"h_2^{PARALLEL_NTT_LOG2_N}", f"ipa_2^{IPA_LOG2_N}",
+                     "prove_2^16"):
+            r = par[path]
+            print(f"parallel {path}: {r['seconds']:.4f} s | peak {r['peak_bytes'] / 2**30:.3f} "
+                  f"GiB | mesh.counts " + json.dumps(r["collectives"]) + " | launches "
+                  + json.dumps(r["launches"]) + " | by batch " + json.dumps(r["per_batch"]),
+                  flush=True)
     by_path = {"msm_2^20": launches, "groth16_2^16": g16_launches,
                f"pairing_{PAIRING_B}": pr["launches"],
                f"pinocchio_2^{PINOCCHIO_LOG2_N}": pn["launches"],
                **{path: v["launches"] for path, v in sp.items()},
                **{path: v["launches"] for path, v in sg.items()},
-               "mont_pow_dynamic": pw["launches"], "table_build": tb["launches"]}
+               "mont_pow_dynamic": pw["launches"], "table_build": tb["launches"],
+               **{f"parallel_{path}": v["launches"] for path, v in par.items() if path != "mesh"}}
     # launches at each timed shape, by path, from the instrumented runs
     shape_counts = {"groth16_prove": g16["launches_per_prove"],
                     "groth16_verify": g16["verify_count"]["launches"],
@@ -1447,7 +1600,9 @@ def run_phases() -> int:
                     f"range_{RANGE_BITS}": sc["range"]["launches"],
                     f"ecdsa_verify_{ECDSA_B}": sc["verify"]["launches"],
                     **{path: c["launches"] for path, c in sgc.items()},
-                    "mont_pow_dynamic": pow_counts, "table_build": to["per_build"]}
+                    "mont_pow_dynamic": pow_counts, "table_build": to["per_build"],
+                    **{f"parallel_{path}": v["per_batch"] for path, v in par.items()
+                       if path != "mesh"}}
     kernels = []
     for name, source, replaces, _ in KERNELS:
         s = stats[name]

@@ -11,8 +11,9 @@ inverses and Frobenius maps at the verify's and bench_pairing's stacks,
 pairing_e against the host optimal-ate, and the Groth16 verify; then the
 secp256k1 tier at K = 16: msm_pippenger_many and the ECDSA batch functions
 on the card against the same calls on CPU tensors; then mont_pow_dynamic
-against its plain version. This file imports no JAX, so it runs on a
-machine that has none:
+against its plain version; then the sharded layer's explicit MSM on a
+world of one over NCCL against msm_pippenger. This file imports no JAX,
+so it runs on a machine that has none:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
@@ -521,3 +522,27 @@ def test_mont_pow_dynamic_on_card_matches_plain(card, p, rows, nbits):
     vals = L.unpack(got[-8:], spec, mont=False)
     for x, k, v in zip(xs[-8:], es[-8:], vals):
         assert v == pow(x * r_inv, k, p) * full % p
+
+
+@pytest.mark.cuda
+def test_sharded_msm_explicit_on_nccl_world_of_one(card):
+    """parallel/: a world of one over NCCL on the card (make_mesh in this
+    process), the explicit sharded MSM at 2^12 points equal to msm_pippenger
+    in affine, with one all_gather per coordinate and the kernels launched."""
+    from zk_toolkit_tpu_torch.bench import msm_inputs
+    from zk_toolkit_tpu_torch.parallel.mesh import make_mesh
+    from zk_toolkit_tpu_torch.parallel.sharded_msm import sharded_msm_explicit
+
+    spec = L.field_spec(params.Q)
+    ops = FqOps(spec)
+    _, _, base, sc = msm_inputs(1 << 12, card)
+    pts = fixed_base_g1(base)
+    with make_mesh(1, "cuda") as mesh:
+        assert (mesh.world, mesh.backend, mesh.device) == (1, "nccl", torch.device("cuda", 0))
+        before = CK.point_add_fused.launches
+        got = sharded_msm_explicit(ops, pts, sc, 255, mesh)
+        assert CK.point_add_fused.launches > before
+        assert mesh.counts == {"all_gather": 3}
+    want = M.msm_pippenger(ops, pts, sc, 255)
+    assert (C.unpack_points(tuple(a[None] for a in got), spec)
+            == C.unpack_points(tuple(a[None] for a in want), spec))

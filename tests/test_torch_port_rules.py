@@ -63,7 +63,8 @@ def test_scan_sees_the_whole_port():
                    "signatures/bls.py", "fields/polynomial.py", "snark/qap.py",
                    "snark/circuits.py", "protocols/groth16.py", "protocols/pinocchio.py",
                    "config.py", "utils/profiling.py", "native/__init__.py", "native/host.py",
-                   "ops/fixed_base.py", "ops/limbs.py", "ops/curve_ops.py"):
+                   "ops/fixed_base.py", "ops/limbs.py", "ops/curve_ops.py",
+                   "parallel/mesh.py", "parallel/sharded_ntt.py", "parallel/sharded_groth16.py"):
         assert f"zk_toolkit_tpu_torch/{module}" in names
     assert _forbidden("jax.numpy") and _forbidden("zk_toolkit_tpu.ops.limbs")
     assert not _forbidden("zk_toolkit_tpu_torch.ops.limbs")

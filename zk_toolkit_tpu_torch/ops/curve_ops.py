@@ -179,6 +179,36 @@ def pad_to_pow2(ops, p, scalars=None):
     return p
 
 
+def _halving_add(ops, p):
+    """One tree level: the first half of axis 0 added to the second."""
+    half = p[0].shape[0] // 2
+    return point_add(ops, tuple(a[:half] for a in p), tuple(a[half:] for a in p))
+
+
+def tree_sum(ops, p):
+    """Sum points over axis 0 by pairwise halving: log2(N) batched adds. N
+    must be a power of two (pad with infinity)."""
+    n = p[0].shape[0]
+    if n & (n - 1):
+        raise ValueError(f"tree_sum needs a power-of-two leading axis, got {n}")
+    while n > 1:
+        p = _halving_add(ops, p)
+        n //= 2
+    return tuple(a[0] for a in p)
+
+
+def scan_fold(ops, pts):
+    """Fold axis 0 of a Jacobian batch of any length: starting from
+    infinity, point_add row 0, then row 1, ... in order, as the JAX
+    package's scanned add does, so the Jacobian limbs are its limbs. One
+    add per row, sequential: for short axes (the ranks' partials, proof
+    assembly), never for point streams."""
+    acc = infinity_like(ops, tuple(a[0] for a in pts))
+    for i in range(pts[0].shape[0]):
+        acc = point_add(ops, acc, tuple(a[i] for a in pts))
+    return acc
+
+
 # -- scalar multiplication ---------------------------------------------------
 
 def _scalar_bit(scalars: torch.Tensor, i: int) -> torch.Tensor:
@@ -198,6 +228,15 @@ def scalar_mul(ops, p, scalars: torch.Tensor, nbits: int):
         added = point_add(ops, acc, p)
         acc = select_point(ops, _scalar_bit(scalars, i) == 1, added, acc)
     return acc
+
+
+def msm_naive(ops, p, scalars: torch.Tensor, nbits: int):
+    """sum_i k_i * P_i by a batched double-and-add per point (scalar_mul),
+    then a tree sum over the points padded to a power of two: the
+    correctness anchor the Pippenger engine (ops/msm.py) is held against,
+    and the local engine of parallel/sharded_msm.sharded_msm."""
+    muls = scalar_mul(ops, p, scalars, nbits)
+    return tree_sum(ops, pad_to_pow2(ops, muls))
 
 
 # -- affine normalization ----------------------------------------------------

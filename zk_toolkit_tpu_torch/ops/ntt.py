@@ -1,6 +1,6 @@
 """Radix-2 NTT/INTT over BLS12-381 Fr on the device (the port of
-zk_toolkit_tpu/ops/ntt.py; its row-batched `dit_rows` comes with the
-sharded layer).
+zk_toolkit_tpu/ops/ntt.py, with its row-batched `dit_rows`, the local
+transform of the four-step sharded NTT in parallel/sharded_ntt.py).
 
 The Groth16 prove works in evaluation form over H = <w_n>, n a power of
 two (Fr has 2-adicity 32); t(x) = x^n - 1 is the constant g^n - 1 on the
@@ -124,6 +124,29 @@ def _dit(dom: NttDomain, x, tables, spans=None):
         with span("ntt_addsub"):
             x = torch.cat([L.add_mod(u, v, spec), L.sub_mod(u, v, spec)], dim=1)
     return x.reshape(n, spec.K)
+
+
+def dit_rows(dom: NttDomain, x, inverse: bool = False):
+    """Row-batched DIT butterflies: transform axis -2 of x [..., n, K] for
+    every row of the leading axes in one pass, natural order in and out
+    (the bit reversal inside), no 1/n. The local transform of the four-step
+    sharded NTT (parallel/sharded_ntt.py); the operations and their order
+    are the JAX package's."""
+    spec = dom.spec
+    n = dom.n
+    if x.shape[-2] != n:
+        raise ValueError(f"dit_rows over a size-{n} domain got rows of {x.shape[-2]}")
+    tables = dom.inv_twiddles if inverse else dom.twiddles
+    lead = tuple(x.shape[:-2])
+    x = x.index_select(-2, dom.bitrev)
+    for s in range(1, dom.log_n + 1):
+        half = 1 << (s - 1)
+        m = 1 << s
+        x = x.reshape(lead + (n // m, m, spec.K))
+        u = x[..., :half, :]
+        v = L.mont_mul(x[..., half:, :], tables[s - 1], spec)
+        x = torch.cat([L.add_mod(u, v, spec), L.sub_mod(u, v, spec)], dim=-2)
+    return x.reshape(lead + (n, spec.K))
 
 
 def ntt(dom: NttDomain, coeffs, spans=None):
